@@ -1,0 +1,118 @@
+"""ResNet-18/34 trunk, torchvision topology (port of svol_tpu/models/resnet.py).
+
+Inputs and outputs are NHWC like the JAX package; inside, the NHWC tensor
+is viewed as NCHW with channels-last strides, the layout cuDNN runs natively.
+Inference only: BatchNorm normalizes with its running statistics.
+
+Parameters stay float32 (as flax keeps them) and are cast to the
+activation's dtype at each use, so a bfloat16 forward rounds exactly where
+the JAX model's ``dtype=bfloat16`` modules do.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+class QuantizableConv(nn.Module):
+    """Bias-free conv, float path (the int8 path waits for the int8 slice).
+    ``weight`` is OIHW; ``kernel_scale`` folds a constant input scale into
+    the kernel: conv(s*x, k) == conv(x, s*k), which is how uint8 pixels skip
+    a separate /255 pass."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(features, in_ch, kernel_size, kernel_size))
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor, kernel_scale: float = 1.0) -> torch.Tensor:
+        w = self.weight
+        if kernel_scale != 1.0:
+            w = w * kernel_scale
+        return F.conv2d(x, w.to(x.dtype), stride=self.stride,
+                        padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm from running statistics (flax ``BatchNorm`` with
+    ``use_running_average=True``); statistics stay float32."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=False, eps=BN_EPS)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, in_ch: int, filters: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = QuantizableConv(in_ch, filters, 3, stride, 1)
+        self.bn1 = BatchNorm(filters)
+        self.conv2 = QuantizableConv(filters, filters, 3, 1, 1)
+        self.bn2 = BatchNorm(filters)
+        self.has_downsample = stride != 1 or in_ch != filters
+        if self.has_downsample:
+            self.downsample_conv = QuantizableConv(in_ch, filters, 1, stride)
+            self.downsample_bn = BatchNorm(filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.has_downsample:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """``include_pool=True`` ends in global average pooling, (N, C) — the
+    sketch path; otherwise the final map is returned NHWC — the video path."""
+
+    def __init__(self, stage_sizes: Sequence[int], include_pool: bool = False):
+        super().__init__()
+        self.include_pool = include_pool
+        self.conv1 = QuantizableConv(3, 64, 7, stride=2, padding=3)
+        self.bn1 = BatchNorm(64)
+        in_ch = 64
+        self.block_names = []
+        for stage, n_blocks in enumerate(stage_sizes):
+            filters = 64 * 2 ** stage
+            for b in range(n_blocks):
+                stride = 2 if stage > 0 and b == 0 else 1
+                name = f"layer{stage + 1}_{b}"
+                self.add_module(name, BasicBlock(in_ch, filters, stride))
+                self.block_names.append(name)
+                in_ch = filters
+
+    def forward(self, x: torch.Tensor, input_scale: float = 1.0) -> torch.Tensor:
+        # x: (N, H, W, 3), already in the compute dtype
+        y = self.conv1(x.permute(0, 3, 1, 2), kernel_scale=input_scale)
+        y = F.relu(self.bn1(y))
+        y = F.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+        for name in self.block_names:
+            y = getattr(self, name)(y)
+        if self.include_pool:
+            return y.mean(dim=(2, 3))  # (N, C)
+        return y.permute(0, 2, 3, 1)  # (N, h, w, C)
+
+
+def resnet18(include_pool: bool = False) -> ResNet:
+    return ResNet((2, 2, 2, 2), include_pool)
+
+
+def resnet34(include_pool: bool = False) -> ResNet:
+    return ResNet((3, 4, 6, 3), include_pool)

@@ -1,0 +1,54 @@
+"""Convert the JAX package's ``{"params", "batch_stats"}`` tree into the
+port's ``state_dict``.
+
+The port names its submodules after the flax tree, so the mapping is
+mechanical: the tree path joined by dots is the parameter name, and only
+the leaf name and layout change:
+
+    Dense  kernel (in, out)       -> weight (out, in)
+    Conv   kernel HWIO            -> weight OIHW
+    LayerNorm / BatchNorm scale   -> weight;  bias -> bias
+    BatchNorm mean / var          -> running_mean / running_var
+    everything else (the gated op's raw q/k projections, query_embed)
+                                  -> the same name and layout
+
+Leaves are numpy arrays (or anything ``np.asarray`` takes); the result
+loads with ``load_state_dict(strict=True)``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), val
+
+
+def convert_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(variables.get("params", {})):
+        arr = np.asarray(leaf, dtype=np.float32)
+        *mod, name = path
+        if name == "kernel" and arr.ndim == 2:
+            name, arr = "weight", arr.T
+        elif name == "kernel" and arr.ndim == 4:
+            name, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif name == "scale":
+            name = "weight"
+        state[".".join(mod + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
+    for path, leaf in _leaves(variables.get("batch_stats", {})):
+        *mod, name = path
+        if name not in _STATS:
+            raise KeyError(f"unexpected batch statistic {'/'.join(path)}")
+        state[".".join(mod + [_STATS[name]])] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32))
+    return state
