@@ -22,7 +22,22 @@ Phases (each failure exits non-zero; nothing is swallowed):
      concurrent client threads (enough to fill batches of 8), check every
      response against a direct predict of the same clip, and check the
      launch counters: 4 flash and 2 gated launches per dispatched batch;
-  6. (--profile) kernel time by name over one batch-8 predict.
+  6. (--profile) kernel time by name over one batch-8 predict;
+  7. train kernels: at the flagship train shapes (B = 16), in float32 (TF32
+     off) and bfloat16, the flash-attention backward against its plain
+     version at L = 1568 and L = 320 (BH = 128), and the batched LSAP
+     against its plain version and scipy on 512 random and 512 masked
+     10 x 10 problems (assignments identical); times of kernel, plain
+     version and (flash) torch's SDPA backward or (LSAP) scipy on the host,
+     beside a bound from bytes and operations;
+  8. train end to end: one float32 train step of the flagship at B = 2,
+     kernels against the plain paths (losses, every gradient);
+  9. train: the bf16 flagship at B = 16 (random weights from --seed) takes
+     N_TRAIN_STEPS (20) AdamW steps on batches made from the seed; every
+     loss and grad_norm finite, the launch counters at 4 flash forward, 4
+     flash backward, 2 gated and 2 LSAP launches per step, one more step under
+     torch.cuda.set_sync_debug_mode("error"); ms/step, frames/s, peak memory;
+ 10. (--profile) kernel time by name over one bf16 B = 16 train step.
 It prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.
 """
@@ -63,6 +78,27 @@ E2E_ATOL = 1e-4
 # concurrent clients of the serve phase: two batches' worth, so that a
 # batch of 8 can fill while the previous one runs
 CLIENTS = 16
+# flash backward, per element: |kernel - plain| <= BWD_RTOL * |plain| +
+# BWD_ATOL * rms(plain). f32: the repo's f32 attention tolerance, absolute
+# (dq, dk and dv are ~0.025 at these shapes). bf16: two bf16 ulps (an ulp
+# is at most 2^-7 of the value) plus 2^-6 of the rms. Each side rounds its
+# f32 result to bf16 once, so they may land one ulp apart; before that the
+# two differ only by f32 rounding (w rebuilt as exp(s - lse) against a
+# softmax, sums in another order), which now and then flips the bf16
+# rounding of one dl = w * (g v^T - delta) term: under 1e-3 of the rms
+# summed over a row, or one more ulp where a single key dominates.
+BWD_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -6}
+BWD_ATOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+# f32 train step, kernels vs plain paths: the full-model loss tolerance and
+# tests/test_full_model_parity.py's gradient tolerance
+TRAIN_LOSS_ATOL = 1e-4
+GRAD_ATOL, GRAD_RTOL = 2e-4, 1e-3
+# launches per train step of the flagship (2 layers, final + 1 aux output):
+# flash forward and backward at L = 1568 and L = 320 in each layer, the
+# gated op in each layer, one LSAP per decoder output
+PER_STEP = {"flash_long": 2, "flash_short": 2, "flash_backward": 4,
+            "gated": 2, "lsap": 2}
+N_TRAIN_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -340,6 +376,231 @@ def profile(torch, predict, full) -> None:
     log(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
 
+def check_train_kernels(torch, F, flash_mod, lsap_mod, B: int, seed: int):
+    """Phase 7. Returns {entry name: measurements} at the bf16 train shapes."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from svol_tpu_torch.ops.hungarian import masked_cost_matrix
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dev = "cuda"
+    results = {}
+    hd, H = 32, 8
+    BH, scale = B * H, hd ** -0.5
+    for L in (1568, 320):
+        for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v, g = (torch.randn(BH, L, hd, generator=gen, device=dev).to(dt)
+                          for _ in range(4))
+            lse = flash_mod._forward_kernel(q, k, v, scale, with_lse=True)[1]
+            got = flash_mod.flash_attention_backward(q, k, v, lse, g, scale)
+            want = flash_mod.attention_backward_reference(q, k, v, g, scale)
+            torch.cuda.synchronize()
+            errs, worsts, ulps = [], [], []
+            for a, b in zip(got, want):
+                a, b = a.float(), b.float()
+                diff = (a - b).abs()
+                rms = b.pow(2).mean().sqrt()
+                limit = BWD_RTOL[dtype_name] * b.abs() + BWD_ATOL[dtype_name] * (
+                    rms if dtype_name == "bfloat16" else 1.0)
+                errs.append(diff.max().item())
+                worsts.append((diff / limit).max().item())
+                # the difference in bf16 ulps of the plain value
+                ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=1e-30))) - 7)
+                ulps.append((diff / ulp)[b.abs() > rms].max().item())
+            log(f"flash backward L={L} {dtype_name}: max_abs_err dq/dk/dv "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, worst err/limit "
+                f"{max(worsts):.3f} (rtol {BWD_RTOL[dtype_name]:.3e}, atol "
+                f"{BWD_ATOL[dtype_name]:.3e}{' x rms' if dtype_name == 'bfloat16' else ''})"
+                + (f"; bf16 ulps at most {ulps[0]:.1f}/{ulps[1]:.1f}/{ulps[2]:.1f} "
+                   "where the plain value is above the rms"
+                   if dtype_name == "bfloat16" else ""))
+            if not max(worsts) <= 1.0:
+                raise AssertionError(f"flash backward L={L} {dtype_name} disagrees: "
+                                     f"err/limit {worsts}")
+            if dtype_name != "bfloat16":
+                continue
+            ms = time_ms(torch, lambda: flash_mod.flash_attention_backward(
+                q, k, v, lse, g, scale))
+            plain = time_ms(torch, lambda: flash_mod.attention_backward_reference(
+                q, k, v, g, scale))
+            q4, k4, v4 = (t.view(B, H, L, hd).detach().requires_grad_() for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            g4 = g.view(B, H, L, hd)
+            lib = time_ms(torch, lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), g4, retain_graph=True))
+            del out4
+            e = 2
+            # read q, k, v, g and the f32 logsumexp; write dq, dk, dv
+            nbytes = 7 * BH * L * hd * e + BH * L * 4
+            # the QK^T, dV, dP, dQ and dK products
+            b, by = bound_ms(nbytes, 10 * BH * L * L * hd, dtype_name)
+            log(f"flash backward L={L} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"sdpa backward {lib:.4f} ms, bound {b:.4f} ms ({by})")
+            if L == 1568:
+                results["flash_backward"] = dict(
+                    max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, library_ms=lib)
+            del q, k, v, g, lse, got, want
+
+    # LSAP: the per-frame matcher's problems, W = B * T = 512 of 10 x 10
+    W, n = B * 32, 10
+    rng = np.random.default_rng(seed + 8)
+    plain_cost = rng.normal(size=(W, n, n)).astype(np.float32)
+    valid = np.arange(n) < rng.integers(0, n + 1, size=(W, 1))
+    masked = masked_cost_matrix(
+        torch.from_numpy(rng.uniform(size=(W, n, n)).astype(np.float32)).to(dev),
+        torch.from_numpy(valid).to(dev)).contiguous()
+    for name, cost in (("random", torch.from_numpy(plain_cost).to(dev)), ("masked", masked)):
+        got = lsap_mod.lsap(cost)
+        want, trips = lsap_mod.solve_dense_reference(cost, count_trips=True)
+        got, want, host = got.cpu().numpy(), want.cpu().numpy(), cost.cpu().numpy()
+        if not (got == want).all():
+            raise AssertionError(f"LSAP {name}: kernel and plain version disagree on "
+                                 f"{int((got != want).any(1).sum())} of {W} problems")
+        t0 = time.perf_counter()
+        scipy_cols = [linear_sum_assignment(c)[1] for c in host]
+        scipy_ms = (time.perf_counter() - t0) * 1e3
+        for w in range(W):
+            if name == "random":
+                same = (got[w] == scipy_cols[w]).all()
+            else:  # the real columns' pairs are scipy's rectangular solution
+                cols = np.flatnonzero(valid[w])
+                r, c = linear_sum_assignment(host[w][:, cols])
+                same = ({(i, int(cols[j])) for i, j in zip(r, c)}
+                        == {(i, int(j)) for i, j in enumerate(got[w]) if valid[w][j]})
+            if not same:
+                raise AssertionError(f"LSAP {name}: problem {w} differs from scipy")
+        log(f"LSAP {name} W={W} {n}x{n}: kernel, plain version and scipy agree on "
+            f"every assignment; {int(trips.sum())} Dijkstra trips")
+        if name != "random":
+            continue
+        ms = time_ms(torch, lambda: lsap_mod.lsap(cost), iters=100)
+        plain = time_ms(torch, lambda: lsap_mod.solve_dense_reference(cost), iters=3, warmup=1)
+        # read the costs, write col4row; per Dijkstra trip 3 adds and a
+        # compare per column, then a 5-level argmin over 32 lanes
+        nbytes = W * n * n * 4 + W * n * 4
+        b, by = bound_ms(nbytes, int(trips.sum()) * (4 * n + 10), "float32")
+        log(f"LSAP W={W} {n}x{n}: kernel {ms:.4f} ms, plain {plain:.4f} ms, scipy "
+            f"on the host {scipy_ms:.4f} ms ({W} calls), bound {b:.6f} ms ({by})")
+        results["lsap"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
+                               bound_by=by, library_ms=None)
+    return results
+
+
+def _train_setup(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps_mod,
+                 cfg, seed: int):
+    model = model_mod.SketchLocalizationModel(cfg)
+    model_mod.init_weights(model, torch.Generator().manual_seed(seed))
+    state = state_mod.create_train_state(cfg, model, device="cuda")
+    step = steps_mod.make_train_step(cfg, criterion_mod.build_criterion(cfg))
+    return state, step
+
+
+def check_train_end_to_end(torch, cfg_mod, model_mod, state_mod, criterion_mod,
+                           steps_mod, synthetic, seed: int):
+    """Phase 8: one f32 train step at B = 2, kernels vs plain paths."""
+    B = 2
+    runs = []
+    for kernels in (True, False):
+        cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(
+            compute_dtype="float32", use_flash_attention=kernels,
+            use_pallas_attention=kernels))
+        batch = synthetic.to_device(synthetic.sample_train_batch(cfg, B, seed=seed + 9), "cuda")
+        state, step = _train_setup(torch, cfg_mod, model_mod, state_mod, criterion_mod,
+                                   steps_mod, cfg, seed)
+        _, metrics = step(state, batch)
+        grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        runs.append(({k: v.item() for k, v in metrics.items()}, grads))
+        del state, step
+    (m_k, g_k), (m_p, g_p) = runs
+    loss_err = max(abs(m_k[k] - m_p[k]) for k in m_p if k != "grad_norm")
+    worst, worst_name = 0.0, ""
+    for name, gp in g_p.items():
+        r = ((g_k[name] - gp).abs() / (GRAD_ATOL + GRAD_RTOL * gp.abs())).max().item()
+        if r > worst:
+            worst, worst_name = r, name
+    log(f"train step f32 B={B}, kernels vs plain paths: losses max_abs_err "
+        f"{loss_err:.3e} (atol {TRAIN_LOSS_ATOL:.0e}); gradients worst err/limit "
+        f"{worst:.3f} at {worst_name} (atol {GRAD_ATOL:.0e}, rtol {GRAD_RTOL:.0e}); "
+        f"grad_norm {m_k['grad_norm']:.6f} vs {m_p['grad_norm']:.6f}")
+    if not (loss_err <= TRAIN_LOSS_ATOL and worst <= 1.0):
+        raise AssertionError("f32 train step: kernels and plain paths disagree")
+
+
+def zero_counts(flash_mod, gated_mod, lsap_mod) -> None:
+    flash_mod.flash_attention.launches = 0
+    flash_mod.flash_attention.launches_short = 0
+    flash_mod.flash_attention_backward.launches = 0
+    gated_mod.gated_attention.launches = 0
+    lsap_mod.lsap.launches = 0
+
+
+def read_counts(flash_mod, gated_mod, lsap_mod):
+    fwd = flash_mod.flash_attention
+    return {"flash_long": fwd.launches - fwd.launches_short,
+            "flash_short": fwd.launches_short,
+            "flash_backward": flash_mod.flash_attention_backward.launches,
+            "gated": gated_mod.gated_attention.launches,
+            "lsap": lsap_mod.lsap.launches}
+
+
+def train_run(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps_mod,
+              synthetic, kernel_mods, B: int, seed: int):
+    """Phase 9. Returns ({name: launches}, state, step, batch)."""
+    n_steps = N_TRAIN_STEPS
+    cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(use_pallas_attention=True))
+    T = cfg.data.num_frames
+    state, step = _train_setup(torch, cfg_mod, model_mod, state_mod, criterion_mod,
+                               steps_mod, cfg, seed)
+    batches = [synthetic.to_device(synthetic.sample_train_batch(cfg, B, seed=seed + 10 + i),
+                                   "cuda") for i in range(4)]
+    for i in range(2):  # warm-up: cuDNN heuristics, the allocator
+        step(state, batches[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*kernel_mods)
+    t0 = time.perf_counter()
+    logged = [step(state, batches[i % len(batches)])[1] for i in range(n_steps)]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(*kernel_mods)
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: torch.stack([m[k] for m in logged]).float().cpu() for k in logged[0]}
+    if not all(torch.isfinite(v).all() for v in values.values()):
+        raise AssertionError("train run: a loss or grad_norm is not finite")
+    want = {name: per * n_steps for name, per in PER_STEP.items()}
+    log(f"train run bf16 B={B}: {n_steps} steps in {secs:.3f} s = "
+        f"{secs / n_steps * 1e3:.3f} ms/step, {B * T * n_steps / secs:.1f} training "
+        f"frames/s, peak memory {peak / 2**30:.3f} GiB; launches {launches}")
+    log("train run losses: loss_overall first/last "
+        f"{values['loss_overall'][0]:.4f}/{values['loss_overall'][-1]:.4f}, grad_norm "
+        f"first/last {values['grad_norm'][0]:.4f}/{values['grad_norm'][-1]:.4f}")
+    if launches != want:
+        raise AssertionError(f"train run launch counts {launches} != {want}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("one train step ran under torch.cuda.set_sync_debug_mode('error'): "
+        "no host synchronization")
+    log(f"train measured on {gpu_line()}")
+    return launches, state, step, batches[0]
+
+
+def profile_train(torch, state, step, batch) -> None:
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        step(state, batch)
+        torch.cuda.synchronize()
+    log(p.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -362,10 +623,14 @@ def main(argv=None) -> int:
     from svol_tpu_torch import config as cfg_mod
     from svol_tpu_torch import serving
     from svol_tpu_torch.cli import serve as serve_cli
+    from svol_tpu_torch.data import synthetic
+    from svol_tpu_torch.losses import criterion as criterion_mod
     from svol_tpu_torch.models import model as model_mod
     from svol_tpu_torch.ops.kernels import build
     from svol_tpu_torch.ops.kernels import flash_attention as flash_mod
     from svol_tpu_torch.ops.kernels import gated_attention as gated_mod
+    from svol_tpu_torch.ops.kernels import lsap as lsap_mod
+    from svol_tpu_torch.train import state as state_mod
     from svol_tpu_torch.train import steps
 
     t_start = time.perf_counter()
@@ -392,7 +657,27 @@ def main(argv=None) -> int:
                                     flash_mod, gated_mod, B, args.requests, args.seed)
     if args.profile:
         profile(torch, predict, full)
+    del predict, full
 
+    # training at the config's batch, the JAX package's default (16)
+    B_TRAIN = cfg_mod.DataConfig().bs
+    kernel_mods = (flash_mod, gated_mod, lsap_mod)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    measured.update(check_train_kernels(torch, F, flash_mod, lsap_mod, B_TRAIN, args.seed))
+    check_train_end_to_end(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps,
+                           synthetic, args.seed)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    trained = train_run(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps,
+                        synthetic, kernel_mods, B_TRAIN, args.seed)
+    train_launches = trained[0]
+    if args.profile:
+        profile_train(torch, *trained[1:])
+    del trained
+
+    # launches: the served run's and the train run's, each counted from 0
+    # just before its path ran
     entries = [
         ("flash_attention (video self-attention, L=1568)", "flash_long",
          "svol_tpu_torch/csrc/flash_attention.cu", "svol_tpu/ops/pallas/flash_attention.py:167"),
@@ -400,9 +685,15 @@ def main(argv=None) -> int:
          "svol_tpu_torch/csrc/flash_attention.cu", "svol_tpu/ops/pallas/flash_attention.py:153"),
         ("gated_attention", "gated",
          "svol_tpu_torch/csrc/gated_attention.cu", "svol_tpu/ops/pallas/gated_attention.py:112"),
+        ("flash_attention_backward (L=1568; also L=320)", "flash_backward",
+         "svol_tpu_torch/csrc/flash_attention_bwd.cu",
+         "svol_tpu/ops/pallas/flash_attention.py:256"),
+        ("lsap (batched Jonker-Volgenant, 512 x 10 x 10)", "lsap",
+         "svol_tpu_torch/csrc/lsap.cu", "svol_tpu/ops/hungarian.py:365"),
     ]
+    log(f"launches: served run {launches}, train run {train_launches}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[key], **measured[key])
+                    launches=launches.get(key, 0) + train_launches[key], **measured[key])
                for name, key, src, rep in entries]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

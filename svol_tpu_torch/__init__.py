@@ -5,8 +5,9 @@ The JAX package ``svol_tpu`` is the reference this port is held against
 JAX package wrote in Pallas are hand-written CUDA C++ for sm_90a under
 ``csrc/``, built at first use (``ops/kernels/build.py``).
 
-Entry points (``serving.load_exported``, ``cli.serve.start_server``) run on
-the card unless the caller passes ``device="cpu"``.
+Entry points (``serving.load_exported``, ``cli.serve.start_server``,
+``train.state.create_train_state``) run on the card unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 

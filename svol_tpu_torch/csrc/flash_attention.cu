@@ -22,6 +22,9 @@
 // with warp shuffles at the end). q is scaled in q's dtype before the dot
 // (`q * scale`, flash_attention.py:64) and the unnormalized weights are
 // rounded to v's dtype before P.V (:75); statistics and sums stay f32.
+// When the autograd path asks for it (lse != nullptr), each row's f32
+// logsumexp m + log(l) is written too: the backward kernels
+// (flash_attention_bwd.cu) rebuild the softmax from it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -46,8 +49,8 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 template <typename T, int D, int TPR>
 __global__ void __launch_bounds__(kBlock)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int lq, int lk,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int lq, int lk, float scale) {
   constexpr int kRows = kBlock / TPR;          // query rows per block
   constexpr int kKeysPerThread = kTileK / TPR;
   constexpr int kStride = D + 4;               // pad: TPR lanes read 4 rows apart
@@ -151,17 +154,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < D; ++d)
       if (d / (D / TPR) == part) orow[d] = from_f<T>(acc[d] * inv);
+    if (lse != nullptr && part == 0) lse[(size_t)bh * lq + row] = m + logf(l);
   }
 }
 
 template <typename T, int D, int TPR>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int lq, int lk, float scale, cudaStream_t stream) {
+                   float* lse, int bh, int lq, int lk, float scale,
+                   cudaStream_t stream) {
   constexpr int kRows = kBlock / TPR;
   dim3 grid((lq + kRows - 1) / kRows, bh);
   flash_fwd_kernel<T, D, TPR><<<grid, kBlock, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lq, lk, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, lq, lk, scale);
   return cudaGetLastError();
 }
 
@@ -170,18 +175,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. tpr: threads per query row (1 or 4).
-// Only head dim 32 (the flagship's 256 / 8) is instantiated.
+// lse: (bh, lq) float32 row logsumexp output, or null. Only head dim 32
+// (the flagship's 256 / 8) is instantiated.
 int svol_flash_attention(const void* q, const void* k, const void* v, void* o,
-                         int bh, int lq, int lk, int d, float scale, int dtype,
-                         int tpr, void* stream) {
+                         void* lse, int bh, int lq, int lk, int d, float scale,
+                         int dtype, int tpr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d != 32 || (tpr != 1 && tpr != 4) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return tpr == 1 ? launch<float, 32, 1>(q, k, v, o, bh, lq, lk, scale, s)
-                    : launch<float, 32, 4>(q, k, v, o, bh, lq, lk, scale, s);
-  return tpr == 1 ? launch<__nv_bfloat16, 32, 1>(q, k, v, o, bh, lq, lk, scale, s)
-                  : launch<__nv_bfloat16, 32, 4>(q, k, v, o, bh, lq, lk, scale, s);
+    return tpr == 1 ? launch<float, 32, 1>(q, k, v, o, l, bh, lq, lk, scale, s)
+                    : launch<float, 32, 4>(q, k, v, o, l, bh, lq, lk, scale, s);
+  return tpr == 1 ? launch<__nv_bfloat16, 32, 1>(q, k, v, o, l, bh, lq, lk, scale, s)
+                  : launch<__nv_bfloat16, 32, 4>(q, k, v, o, l, bh, lq, lk, scale, s);
 }
 
 const char* svol_error_string(int err) {

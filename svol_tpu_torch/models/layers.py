@@ -78,9 +78,11 @@ class MultiheadAttention(nn.Module):
         scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
 
         if self.use_flash and key_padding_mask is None:
+            # the kernel scales q in its dtype itself; its backward applies
+            # the unrounded scale in f32, as the JAX kernel does
             out = flash_attention(q.reshape(B * H, Lq, hd),
                                   k.reshape(B * H, Lk, hd),
-                                  v.reshape(B * H, Lk, hd), scale)
+                                  v.reshape(B * H, Lk, hd), hd ** -0.5)
             out = out.reshape(B, H, Lq, hd)
         elif q.dtype == torch.bfloat16:
             # bf16 logits; max-subtraction and normalizing sum in f32
@@ -88,7 +90,7 @@ class MultiheadAttention(nn.Module):
             if key_padding_mask is not None:
                 logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                             torch.finfo(torch.bfloat16).min)
-            m = logits.amax(dim=-1, keepdim=True).float()
+            m = logits.amax(dim=-1, keepdim=True).float().detach()
             e = torch.exp((logits.float() - m).to(torch.bfloat16))
             denom = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
             out = torch.matmul(e / denom.to(torch.bfloat16), v)
@@ -155,32 +157,55 @@ class BoxHeadMLP(nn.Module):
         return x
 
 
-class LinearLayer(nn.Module):
-    """LayerNorm -> (dropout, identity at inference) -> Linear [-> ReLU]."""
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale kept ones by 1 / (1 - rate), in x's dtype. The mask comes from
+    ``generator`` (on x's device), never from the global RNG."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
 
-    def __init__(self, in_dim: int, out_dim: int, relu: bool = True):
+
+class LinearLayer(nn.Module):
+    """LayerNorm -> dropout (train mode only) -> Linear [-> ReLU]."""
+
+    def __init__(self, in_dim: int, out_dim: int, relu: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(in_dim)
         self.linear = Linear(in_dim, out_dim)
         self.relu = relu
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.linear(self.norm(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.norm(x)
+        if self.training:
+            x = dropout(x, self.dropout, generator)
+        x = self.linear(x)
         return F.relu(x) if self.relu else x
 
 
 class InputProjection(nn.Module):
     """n LinearLayers to hidden_dim, ReLU on all but the last."""
 
-    def __init__(self, in_dim: int, hidden_dim: int, n_layers: int = 2):
+    def __init__(self, in_dim: int, hidden_dim: int, n_layers: int = 2,
+                 dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"proj{i}", LinearLayer(
                 in_dim if i == 0 else hidden_dim, hidden_dim,
-                relu=i < n_layers - 1))
+                relu=i < n_layers - 1, dropout=dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"proj{i}")(x)
+            x = getattr(self, f"proj{i}")(x, generator)
         return x

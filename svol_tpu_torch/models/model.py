@@ -3,11 +3,13 @@ of svol_tpu/models/model.py).
 
 uint8 pixels are cast to the compute dtype on the device and the /255
 normalization folds into the stem conv's kernel (conv is linear); float
-pixels in [0, 1] pass unscaled.
+pixels in [0, 1] pass unscaled. ``model.train()`` / ``.eval()`` play the
+JAX ``train=`` flag: BatchNorm batch statistics and input dropout in train
+mode, running statistics and no dropout in eval mode.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -40,15 +42,18 @@ class SketchLocalizationModel(nn.Module):
             video_position_embedding=cfg.video_position_embedding,
             use_pallas=cfg.use_pallas_attention,
             use_flash=cfg.use_flash_attention,
+            input_dropout=cfg.input_dropout,
         )
 
     def forward(self, src_sketch: torch.Tensor, src_video: torch.Tensor,
                 src_sketch_mask: torch.Tensor, src_video_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
                 ) -> Dict[str, torch.Tensor]:
         # src_sketch (B, 1, H, W, 3), src_video (B, T, H, W, 3): uint8 pixels
         # or floats in [0, 1]; masks (B, 1) / (B, T), 1 = valid. The sketch
         # mask is part of the input schema but, as in the JAX model's sine
-        # configuration, nothing consumes it.
+        # configuration, nothing consumes it. generator: the source of the
+        # dropout masks in train mode, on the model's device.
         sketch_scale = 1.0 / 255.0 if not src_sketch.is_floating_point() else 1.0
         video_scale = 1.0 / 255.0 if not src_video.is_floating_point() else 1.0
         feat_sketch, feat_video = self.backbone(
@@ -60,8 +65,11 @@ class SketchLocalizationModel(nn.Module):
                 f"{tuple(src_video.shape[2:4])} frames give "
                 f"{feat_video.shape[1] // src_video.shape[1]} tokens per frame; "
                 f"the config's image_size expects {rep}")
-        video_mask = src_video_mask.repeat_interleave(rep, dim=1)
-        return self.head(feat_sketch, feat_video, video_mask)
+        # repeat each frame's flag over its tokens (an expand, which needs no
+        # host synchronization)
+        B, T = src_video_mask.shape
+        video_mask = src_video_mask[:, :, None].expand(B, T, rep).reshape(B, T * rep)
+        return self.head(feat_sketch, feat_video, video_mask, generator)
 
 
 @torch.no_grad()

@@ -2,7 +2,9 @@
 
 Inputs and outputs are NHWC like the JAX package; inside, the NHWC tensor
 is viewed as NCHW with channels-last strides, the layout cuDNN runs natively.
-Inference only: BatchNorm normalizes with its running statistics.
+BatchNorm follows ``module.train()`` / ``.eval()`` as the JAX ``train=`` flag
+does: batch statistics with flax's running-average update in train mode,
+running statistics in eval mode.
 
 Parameters stay float32 (as flax keeps them) and are cast to the
 activation's dtype at each use, so a bfloat16 forward rounds exactly where
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax convention: ra = 0.9 * ra + 0.1 * batch statistic
 
 
 class QuantizableConv(nn.Module):
@@ -42,8 +45,16 @@ class QuantizableConv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm from running statistics (flax ``BatchNorm`` with
-    ``use_running_average=True``); statistics stay float32."""
+    """flax ``BatchNorm`` semantics; statistics stay float32.
+
+    Eval mode normalizes with the running statistics. Train mode normalizes
+    with the batch mean and the biased variance (eps 1e-5) over every
+    position of the batch, padded frames included, and updates
+    ``ra = 0.9 * ra + 0.1 * batch_stat`` with the biased variance for the
+    running variance too, where ``nn.BatchNorm2d`` would use the unbiased
+    one. One ``F.batch_norm`` pass yields the batch statistics into scratch
+    buffers (momentum 1); its unbiased variance is rescaled by (n - 1) / n.
+    """
 
     def __init__(self, features: int):
         super().__init__()
@@ -53,8 +64,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False, eps=BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False, eps=BN_EPS)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, training=True,
+                         momentum=1.0, eps=BN_EPS)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                var, alpha=(1 - BN_MOMENTUM) * (n - 1) / n)
+        return y
 
 
 class BasicBlock(nn.Module):

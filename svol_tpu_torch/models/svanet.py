@@ -5,7 +5,7 @@ queries, the cross-modal transformer, a linear fg/bg class head and a
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -21,12 +21,15 @@ class SVANet(nn.Module):
                  num_queries: int = 320, dim_feedforward: int = 2048,
                  aux_loss: bool = True, n_input_proj: int = 2,
                  num_classes: int = 2, video_position_embedding: str = "sine",
-                 use_pallas: bool = False, use_flash: bool = False):
+                 use_pallas: bool = False, use_flash: bool = False,
+                 input_dropout: float = 0.0):
         super().__init__()
         self.aux_loss = aux_loss
         self.num_layers = num_layers
-        self.input_video_proj = InputProjection(input_vid_dim, hidden_dim, n_input_proj)
-        self.input_sketch_proj = InputProjection(input_skch_dim, hidden_dim, n_input_proj)
+        self.input_video_proj = InputProjection(input_vid_dim, hidden_dim,
+                                                n_input_proj, input_dropout)
+        self.input_sketch_proj = InputProjection(input_skch_dim, hidden_dim,
+                                                 n_input_proj, input_dropout)
         self.video_position_embed = make_position_embedding(
             video_position_embedding, hidden_dim)
         self.query_embed = nn.Parameter(torch.empty(num_queries, hidden_dim))
@@ -36,11 +39,14 @@ class SVANet(nn.Module):
         self.bbox_embed = BoxHeadMLP(hidden_dim, 4, 3)
 
     def forward(self, src_sketch: torch.Tensor, src_video: torch.Tensor,
-                src_video_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                src_video_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                ) -> Dict[str, torch.Tensor]:
         # src_video_mask: (B, L), 1 = valid. The sketch is a single token
         # with no sequence structure: it takes no mask and no positions.
-        vid = self.input_video_proj(src_video)
-        skch = self.input_sketch_proj(src_sketch)
+        # generator: the dropout masks' source in train mode.
+        vid = self.input_video_proj(src_video, generator)
+        skch = self.input_sketch_proj(src_sketch, generator)
         vid_valid = src_video_mask.bool()
         vid_pos = self.video_position_embed(vid_valid).to(vid.dtype)
         hs = self.transformer(vid, skch, ~vid_valid, vid_pos, self.query_embed)

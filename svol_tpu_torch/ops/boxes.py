@@ -1,5 +1,8 @@
-"""Box format conversion (port of svol_tpu/ops/boxes.py)."""
+"""Box geometry (port of svol_tpu/ops/boxes.py): format conversion and
+pairwise IoU / GIoU over arbitrary leading batch dimensions."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -9,3 +12,39 @@ def box_cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = b.unbind(-1)
     return torch.stack(
         [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
+
+
+def box_xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    """(..., 4) corner -> center-size format."""
+    x0, y0, x1, y1 = b.unbind(-1)
+    return torch.stack([(x0 + x1) * 0.5, (y0 + y1) * 0.5, x1 - x0, y1 - y0],
+                       dim=-1)
+
+
+def box_area(b: torch.Tensor) -> torch.Tensor:
+    """(..., 4) xyxy -> (...,) area."""
+    return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise IoU of xyxy sets (..., N, 4) and (..., M, 4) -> iou, union,
+    both (..., N, M). No epsilon, as in the reference."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union, union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy sets (..., N, 4) and (..., M, 4) -> (..., N, M)."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]  # enclosing box
+    return iou - (area - union) / area

@@ -4,7 +4,9 @@ one sketch query over the video tokens, used as a gate on the video stream.
 Port of svol_tpu/ops/pallas/gated_attention.py. The kernel,
 ``csrc/gated_attention.cu``, computes the k-projection, the per-head
 logits, the softmax over L, the head mean and the gating multiply in one
-launch per batch (one block per batch row). Inference only.
+launch per batch (one block per batch row). Its gradient is autograd
+through ``gated_attention_reference``, recomputed from the saved inputs,
+as the JAX package's ``_fused_bwd`` does: no backward kernel.
 """
 from __future__ import annotations
 
@@ -45,16 +47,14 @@ def gated_attention(sketch, k_input, mem, wq, bq, wk, bk,
     """(att (B, L), gated (B, L, D)) in mem's dtype. ``sketch`` is (B, 1, D),
     ``k_input`` and ``mem`` (B, L, D), ``wq``/``wk`` (D, D) in (in, out)
     layout. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    if mem.device.type == "cpu":
-        return gated_attention_reference(sketch, k_input, mem, wq, bq, wk, bk,
-                                         num_heads)
-    if mem.device.type != "cuda":
+    kernel or raise. Differentiable (see ``_GatedAttention``)."""
+    if mem.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gated_attention: unsupported device {mem.device}")
+    return _GatedAttention.apply(sketch, k_input, mem, wq, bq, wk, bk, num_heads)
+
+
+def _forward_kernel(sketch, k_input, mem, wq, bq, wk, bk, num_heads: int):
     acts, weights = (sketch, k_input, mem), (wq, bq, wk, bk)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in acts + weights):
-        raise NotImplementedError(
-            "gated_attention is inference-only: its backward is not ported")
     if mem.dtype not in _DTYPES or any(t.dtype != mem.dtype for t in acts):
         raise TypeError("gated_attention: sketch/k_input/mem must share "
                         "float32 or bfloat16")
@@ -89,6 +89,32 @@ def gated_attention(sketch, k_input, mem, wq, bq, wk, bk,
 
 
 gated_attention.launches = 0
+
+
+class _GatedAttention(torch.autograd.Function):
+    """Forward: the kernel or, on the CPU, the plain version. Backward:
+    autograd of ``gated_attention_reference`` recomputed from the saved
+    inputs (the JAX ``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, sketch, k_input, mem, wq, bq, wk, bk, num_heads):
+        args = (sketch, k_input, mem, wq, bq, wk, bk)
+        ctx.save_for_backward(*args)
+        ctx.num_heads = num_heads
+        if mem.device.type == "cpu":
+            return gated_attention_reference(*args, num_heads)
+        return _forward_kernel(*args, num_heads)
+
+    @staticmethod
+    def backward(ctx, g_att, g_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            att, out = gated_attention_reference(*inputs, ctx.num_heads)
+            grads = iter(torch.autograd.grad((att, out), wanted, (g_att, g_out)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)
 
 
 def _lib() -> ctypes.CDLL:

@@ -13,7 +13,9 @@ the leaf name and layout change:
                                   -> the same name and layout
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes); the result
-loads with ``load_state_dict(strict=True)``.
+loads with ``load_state_dict(strict=True)``. ``port_state_to_jax_numpy``
+maps a port ``state_dict`` back into the flax tree's names and layouts, so
+that the two can be compared leaf for leaf.
 """
 from __future__ import annotations
 
@@ -52,3 +54,29 @@ def convert_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         state[".".join(mod + [_STATS[name]])] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
     return state
+
+
+def port_state_to_jax_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The reverse of ``convert_jax_variables``: a port ``state_dict`` ->
+    ``{"params": ..., "batch_stats": ...}`` nested dicts of float32 numpy
+    arrays under the flax tree's names and layouts."""
+    stats = {v: k for k, v in _STATS.items()}
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state.items():
+        *mod, name = key.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if name in stats:
+            coll, name = "batch_stats", stats[name]
+        else:
+            coll = "params"
+            if name == "weight" and arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            elif name == "weight" and arr.ndim == 4:
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif name == "weight":
+                name = "scale"
+        node = out[coll]
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out

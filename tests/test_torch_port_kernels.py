@@ -129,7 +129,10 @@ def test_port_imports_no_jax_flax_or_svol_tpu():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, svol_tpu_torch.cli.serve, svol_tpu_torch.utils.jax_weights; "
+    code = ("import sys, svol_tpu_torch.cli.serve, svol_tpu_torch.utils.jax_weights, "
+            "svol_tpu_torch.train.steps, svol_tpu_torch.train.state, "
+            "svol_tpu_torch.losses.criterion, svol_tpu_torch.ops.hungarian, "
+            "svol_tpu_torch.data.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'svol_tpu')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=REPO)
