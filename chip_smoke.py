@@ -37,7 +37,21 @@ Phases (each failure exits non-zero; nothing is swallowed):
      loss and grad_norm finite, the launch counters at 4 flash forward, 4
      flash backward, 2 gated and 2 LSAP launches per step, one more step under
      torch.cuda.set_sync_debug_mode("error"); ms/step, frames/s, peak memory;
- 10. (--profile) kernel time by name over one bf16 B = 16 train step.
+ 10. (--profile) kernel time by name over one bf16 B = 16 train step;
+ 11. int8 kernel: the int8 attention kernel against its plain version at
+     the serving shapes (BH = 64, L = 1568 and L = 320, q/k/v from bf16
+     tensors quantized with dynamic and with static scales); times of
+     kernel, plain version, the whole int8 attention function and, as the
+     nearest library call, bf16 scaled_dot_product_attention, beside a
+     bound from bytes, int8 operations and exponentials;
+ 12. int8 serve: the flagship with quantize='int8' and
+     quantize_attention=True calibrated on one batch made from the seed,
+     exported, served as in phase 5 (responses against direct predict, the
+     /healthz quantize field), the launch counters at 2 int8 attention
+     launches at each of L = 1568 and L = 320 and 2 gated launches per
+     batch and no bf16 flash launch, and the int8 predict held near the f32
+     predict of the same weights; (--profile) kernel time by name over one
+     int8 batch-8 predict.
 It prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.
 """
@@ -99,17 +113,50 @@ GRAD_ATOL, GRAD_RTOL = 2e-4, 1e-3
 PER_STEP = {"flash_long": 2, "flash_short": 2, "flash_backward": 4,
             "gated": 2, "lsap": 2}
 N_TRAIN_STEPS = 20
+# launches per served batch: flash at L = 1568 and L = 320 and the gated op
+# in each of the 2 layers; in int8 the int8 attention takes both flash sites
+PER_BATCH = {"flash_long": 2, "flash_short": 2, "gated": 2}
+PER_BATCH_INT8 = {"gated": 2, "flash_int8": 4}
+# int8 attention, kernel against plain version, per element:
+# |kernel - plain| <= (L + 10) u |plain| + n / denom, u = 2^-24. Both take
+# the same int8 tensors, so the int32 products are exact on each side; the
+# exponentials are the same CUDA expf of the same f32 argument; the row
+# sum denom of L positive terms runs in another order (at most L u apart,
+# relatively), and four roundings on each side follow. n counts the row's
+# weights e * 127 within 1e-4 of a half, which an ulp of exp could round
+# apart: each moves the int32 accumulator by at most 127, the output by at
+# most 1 / denom (the function's output is in units of v's int8 grid).
+INT8_FLIP_WINDOW = 1e-4
+# multi-function unit (exp2 and other f32 transcendentals) results per
+# clock per SM on compute capability 9.0 (CUDA programming guide,
+# arithmetic instruction throughput); expf is an ex2 after a multiply
+SFU_PER_CLOCK_PER_SM = 16
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations/s
+# int8 serving against the f32 predict of the same weights, scores and
+# boxes: int8 moves each of the ~36 conv inputs and the attention inputs by
+# half a step of a 255-level grid, and bf16 compute adds its own rounding.
+# The JAX suite bounds int8 against float at 0.5 on the logits
+# (tests/test_quantize.py), which bounds softmax scores at 0.125 (a
+# two-class softmax moves by at most 1/4 of its logit difference, which
+# moves by at most twice the logits' bound); the small CPU model moved
+# its scores by 0.013 and logits by 0.033 (tests/test_torch_port_int8.py).
+# Expected here ~0.02 on scores and ~0.01 on boxes; the bound 0.1.
+INT8_VS_F32_ATOL = 0.1
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_line() -> str:
+def gpu_query(fields: str, fmt: str = "csv,noheader") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_line() -> str:
+    return gpu_query("name,power.limit")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -207,6 +254,86 @@ def check_kernels(torch, F, flash_mod, gated_mod, B: int, seed: int):
     return results
 
 
+def int8_limit(torch, qq, kq, logit_scale, plain):
+    """Per-element limit of kernel against plain version (INT8 tolerance
+    above), from the exact int8 logits."""
+    L = kq.shape[1]
+    # int8 products summed to at most 127^2 * 32 < 2^24: exact in f32
+    s = torch.matmul(qq.float(), kq.float().transpose(-1, -2)) * logit_scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    del s
+    t = e * 127.0
+    near_half = ((t - t.floor() - 0.5).abs() < INT8_FLIP_WINDOW).sum(dim=-1, keepdim=True)
+    del t
+    denom = e.sum(dim=-1, keepdim=True)
+    return (L + 10) * 2.0 ** -24 * plain.abs() + near_half / denom, int(near_half.sum())
+
+
+def check_int8_kernels(torch, F, int8_mod, B: int, seed: int):
+    """Phase 11. Returns {"flash_int8": measurements} at L = 1568."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    hd, H = 32, 8
+    BH, scale = B * H, hd ** -0.5
+    scale32 = float(torch.tensor(scale, dtype=torch.float32))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(gpu_query("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+    results = {}
+    for L in (1568, 320):
+        q, k, v = (torch.randn(BH, L, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        for mode in ("dynamic", "static"):
+            # static: abs-maxes 3/4 of this data's, as calibrated on other
+            # clips; the top quarter clips
+            amax = (None if mode == "dynamic"
+                    else tuple(0.75 * t.float().abs().amax() for t in (q, k, v)))
+            (qq, sq), (kq, sk), (vq, sv) = (
+                int8_mod.quant_sym(t, None if amax is None else amax[i])
+                for i, t in enumerate((q, k, v)))
+            ls = (sq * sk * scale32).reshape(1)
+            got = int8_mod.attention_int8(qq, kq, vq, ls)
+            want = int8_mod.attention_int8_reference(qq, kq, vq, ls)
+            torch.cuda.synchronize()
+            limit, flips = int8_limit(torch, qq, kq, ls, want)
+            diff = (got - want).abs()
+            # a limit of 0 (a zero output in a row with no weight near a
+            # half) admits only an equal output
+            worst = torch.where(diff == 0, 0.0, diff / limit).max().item()
+            err = diff.max().item()
+            log(f"int8 attention L={L} {mode}: max_abs_err={err:.3e} (in v's int8 steps), "
+                f"max |plain| {want.abs().max().item():.3e}, worst err/limit {worst:.3f} "
+                f"(rtol (L + 10) 2^-24, {flips} weights near a half)")
+            if not worst <= 1.0:
+                raise AssertionError(f"int8 attention L={L} {mode} disagrees: "
+                                     f"err/limit {worst} > 1")
+            whole = time_ms(torch, lambda: int8_mod.flash_attention_int8(q, k, v, scale, amax))
+            log(f"int8 attention L={L} {mode}: the whole function (quantize q/k/v, "
+                f"kernel, v scale, bf16 out) {whole:.4f} ms")
+            if mode != "dynamic":
+                continue
+            ms = time_ms(torch, lambda: int8_mod.attention_int8(qq, kq, vq, ls))
+            plain = time_ms(torch, lambda: int8_mod.attention_int8_reference(qq, kq, vq, ls),
+                            iters=5, warmup=1)
+            q4, k4, v4 = (t.view(B, H, L, hd) for t in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+            # read int8 q, k, v and the f32 logit scale; write f32 out
+            nbytes = 3 * BH * L * hd + 4 + 4 * BH * L * hd
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_int8 = 4 * BH * L * L * hd / PEAK_INT8_OPS * 1e3
+            t_exp = BH * L * L / (sms * SFU_PER_CLOCK_PER_SM * clock_hz) * 1e3
+            b = max(t_bytes, t_int8, t_exp)
+            by = "bytes" if b == t_bytes else "operations"
+            log(f"int8 attention L={L}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bf16 sdpa "
+                f"{lib:.4f} ms; bound {b:.4f} ms ({by}: bytes {t_bytes:.4f}, int8 operations "
+                f"{t_int8:.4f}, exponentials {t_exp:.4f} ms at {sms} SMs x "
+                f"{SFU_PER_CLOCK_PER_SM}/clock x {clock_hz / 1e6:.0f} MHz)")
+            if L == 1568:
+                results["flash_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                             bound_ms=b, bound_by=by, library_ms=lib)
+        del q, k, v, qq, kq, vq, got, want, limit, diff
+    log(f"int8 kernels measured on {gpu_line()}")
+    return results
+
+
 def check_end_to_end(torch, cfg_mod, model_mod, steps, seed: int):
     """Phase 4: f32 flagship forward, kernels on vs plain paths."""
     import numpy as np
@@ -234,20 +361,37 @@ def check_end_to_end(torch, cfg_mod, model_mod, steps, seed: int):
         raise AssertionError(f"end-to-end f32 disagrees: {err}")
 
 
-def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
-          B: int, n_requests: int, seed: int):
-    """Phase 5. Returns {name: launches} from the served run."""
+def serve(torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods,
+          B: int, n_requests: int, seed: int, quantize: bool = False):
+    """Phase 5 (bf16) or, with ``quantize``, phase 12 (int8, calibrated on
+    one batch made from the seed). Returns ({name: launches}, predict, a
+    full batch, the model's state dict)."""
     import numpy as np
 
-    cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(use_pallas_attention=True))
+    from svol_tpu_torch.ops import quant
+
+    cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(
+        use_pallas_attention=True, quantize="int8" if quantize else None,
+        quantize_attention=quantize))
     T, S, Q = cfg.data.num_frames, cfg.data.image_size, cfg.model.num_queries
+    L = T * model_mod.tokens_per_frame(cfg.model.backbone, S)
+    tag = "int8" if quantize else "bf16"
     model = model_mod.SketchLocalizationModel(cfg)
     model_mod.init_weights(model, torch.Generator().manual_seed(seed))
+    if quantize:
+        calib = synthetic.to_device(synthetic.sample_train_batch(cfg, B, seed=seed + 12),
+                                    "cuda")
+        t0 = time.perf_counter()
+        scales = quant.calibrate_scales(model.cuda(), [calib])
+        torch.cuda.synchronize()
+        log(f"int8 calibration on one batch of {B}: {len(scales)} scales in "
+            f"{time.perf_counter() - t0:.3f} s")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
     tmp = tempfile.TemporaryDirectory(prefix="svol_smoke_")
     try:
-        export_dir = serving.export_model(cfg, model.state_dict(),
-                                          os.path.join(tmp.name, "export"), batch_size=B)
-        del model
+        export_dir = serving.export_model(cfg, state, os.path.join(tmp.name, "export"),
+                                          batch_size=B)
         server, batcher, stats, port = serve_cli.start_server(
             export_dir, port=0, batch_timeout_ms=20.0, device="cuda")
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -278,9 +422,7 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
                 errors.append(repr(e))
 
         try:
-            flash_mod.flash_attention.launches = 0
-            flash_mod.flash_attention.launches_short = 0
-            gated_mod.gated_attention.launches = 0
+            zero_counts(*kernel_mods)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             threads = [threading.Thread(target=client,
@@ -291,15 +433,13 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
             for t in threads:
                 t.join(timeout=900)
             wall = time.perf_counter() - t0
-            launches = {
-                "flash_long": (flash_mod.flash_attention.launches
-                               - flash_mod.flash_attention.launches_short),
-                "flash_short": flash_mod.flash_attention.launches_short,
-                "gated": gated_mod.gated_attention.launches,
-            }
+            launches = read_counts(*kernel_mods)
+            by_length = dict(kernel_mods[-1].attention_int8.launches_by_length)
             if any(t.is_alive() for t in threads) or errors:
                 raise RuntimeError(f"clients failed: {errors}")
             snap = stats.snapshot()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+                health = json.loads(r.read())
         finally:
             server.shutdown()
             server.server_close()
@@ -307,13 +447,22 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
             thread.join(timeout=30)
 
         batches = snap["total_batches"]
-        log(f"served {n_requests} requests in {batches} batches "
-            f"(occupancy {snap['batch_occupancy']}), launches {launches}")
-        want = {"flash_long": 2 * batches, "flash_short": 2 * batches, "gated": 2 * batches}
+        log(f"served {tag} {n_requests} requests in {batches} batches "
+            f"(occupancy {snap['batch_occupancy']}), launches {launches}"
+            + (f", int8 attention by length {by_length}" if quantize else ""))
+        per = PER_BATCH_INT8 if quantize else PER_BATCH
+        want = {name: per.get(name, 0) * batches for name in launches}
         if launches != want or batches == 0:
-            raise AssertionError(f"launch counts {launches} != {want}")
+            raise AssertionError(f"{tag} launch counts {launches} != {want}")
+        if quantize and by_length != {L: 2 * batches, Q: 2 * batches}:
+            raise AssertionError(f"int8 attention launches by length {by_length}: "
+                                 f"not 2 per batch at each of L = {L} and {Q}")
+        if health.get("quantize") != cfg.model.quantize:
+            raise AssertionError(f"/healthz reports quantize {health.get('quantize')!r}")
 
-        predict, _ = serving.load_exported(export_dir, device="cuda")
+        predict, meta = serving.load_exported(export_dir, device="cuda")
+        if meta["quantize"] != cfg.model.quantize:
+            raise AssertionError(f"meta.json quantize {meta['quantize']!r}")
         direct = []
         for i, (status, resp) in enumerate(responses):
             if status != 200:
@@ -341,7 +490,7 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
             if not err <= SERVE_ATOL:
                 raise AssertionError(f"request {i}: served vs direct predict {err} > {SERVE_ATOL}")
         spread = max(np.abs(direct[0] - d).max() for d in direct[1:])
-        log(f"every response matches a direct predict within {SERVE_ATOL}; "
+        log(f"{tag}: every response matches a direct predict within {SERVE_ATOL}; "
             f"clips differ from each other by up to {spread:.3e}")
 
         lat = np.asarray([r[1]["latency_ms"] for r in responses])
@@ -357,14 +506,43 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, flash_mod, gated_mod,
             predict(full)
         torch.cuda.synchronize()
         batch_s = (time.perf_counter() - t1) / reps
-        log(f"serve: p50 {np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms, "
-            f"{n_requests * T / wall:.1f} frames/s over {wall:.3f} s with {CLIENTS} "
-            f"clients, batch occupancy {snap['batch_occupancy']}; "
+        log(f"serve {tag}: p50 {np.percentile(lat, 50):.3f} ms, p90 "
+            f"{np.percentile(lat, 90):.3f} ms, {n_requests * T / wall:.1f} frames/s over "
+            f"{wall:.3f} s with {CLIENTS} clients, batch occupancy {snap['batch_occupancy']}; "
             f"direct batch-{B} predict {batch_s * 1e3:.3f} ms = {B * T / batch_s:.1f} frames/s")
-        log(f"serve measured on {gpu_line()}")
-        return launches, predict, full
+        log(f"serve {tag} measured on {gpu_line()}")
+        return launches, predict, full, state
     finally:
         tmp.cleanup()
+
+
+def check_int8_near_f32(torch, cfg_mod, model_mod, steps, state, predict, full) -> None:
+    """Phase 12: the int8 predict against the f32 predict of the same
+    weights (TF32 off), on the full batch."""
+    import numpy as np
+
+    from svol_tpu_torch.ops.quant import quant_scales
+
+    cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(
+        compute_dtype="float32", use_pallas_attention=True))
+    model = model_mod.SketchLocalizationModel(cfg).eval()
+    model.load_state_dict({k: v for k, v in state.items() if k not in quant_scales(state)},
+                          strict=True)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in full.items()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = [t.cpu().numpy() for t in steps.make_predict_fn(model.cuda())(batch)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    got = predict(full)
+    errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+    means = [float(np.abs(g - w).mean()) for g, w in zip(got, want)]
+    log(f"int8 predict vs f32 predict of the same weights: scores max {errs[0]:.3e} "
+        f"(mean {means[0]:.3e}), boxes max {errs[1]:.3e} (mean {means[1]:.3e}), "
+        f"bound {INT8_VS_F32_ATOL}")
+    if not max(errs) <= INT8_VS_F32_ATOL:
+        raise AssertionError(f"int8 predict strays from f32: {errs} > {INT8_VS_F32_ATOL}")
 
 
 def profile(torch, predict, full) -> None:
@@ -528,21 +706,24 @@ def check_train_end_to_end(torch, cfg_mod, model_mod, state_mod, criterion_mod,
         raise AssertionError("f32 train step: kernels and plain paths disagree")
 
 
-def zero_counts(flash_mod, gated_mod, lsap_mod) -> None:
+def zero_counts(flash_mod, gated_mod, lsap_mod, int8_mod) -> None:
     flash_mod.flash_attention.launches = 0
     flash_mod.flash_attention.launches_short = 0
     flash_mod.flash_attention_backward.launches = 0
     gated_mod.gated_attention.launches = 0
     lsap_mod.lsap.launches = 0
+    int8_mod.attention_int8.launches = 0
+    int8_mod.attention_int8.launches_by_length = {}
 
 
-def read_counts(flash_mod, gated_mod, lsap_mod):
+def read_counts(flash_mod, gated_mod, lsap_mod, int8_mod):
     fwd = flash_mod.flash_attention
     return {"flash_long": fwd.launches - fwd.launches_short,
             "flash_short": fwd.launches_short,
             "flash_backward": flash_mod.flash_attention_backward.launches,
             "gated": gated_mod.gated_attention.launches,
-            "lsap": lsap_mod.lsap.launches}
+            "lsap": lsap_mod.lsap.launches,
+            "flash_int8": int8_mod.attention_int8.launches}
 
 
 def train_run(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps_mod,
@@ -569,7 +750,7 @@ def train_run(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps_mod,
     values = {k: torch.stack([m[k] for m in logged]).float().cpu() for k in logged[0]}
     if not all(torch.isfinite(v).all() for v in values.values()):
         raise AssertionError("train run: a loss or grad_norm is not finite")
-    want = {name: per * n_steps for name, per in PER_STEP.items()}
+    want = {name: PER_STEP.get(name, 0) * n_steps for name in launches}
     log(f"train run bf16 B={B}: {n_steps} steps in {secs:.3f} s = "
         f"{secs / n_steps * 1e3:.3f} ms/step, {B * T * n_steps / secs:.1f} training "
         f"frames/s, peak memory {peak / 2**30:.3f} GiB; launches {launches}")
@@ -628,6 +809,7 @@ def main(argv=None) -> int:
     from svol_tpu_torch.models import model as model_mod
     from svol_tpu_torch.ops.kernels import build
     from svol_tpu_torch.ops.kernels import flash_attention as flash_mod
+    from svol_tpu_torch.ops.kernels import flash_attention_int8 as int8_mod
     from svol_tpu_torch.ops.kernels import gated_attention as gated_mod
     from svol_tpu_torch.ops.kernels import lsap as lsap_mod
     from svol_tpu_torch.train import state as state_mod
@@ -653,15 +835,15 @@ def main(argv=None) -> int:
         check_end_to_end(torch, cfg_mod, model_mod, steps, args.seed)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
-    launches, predict, full = serve(torch, cfg_mod, model_mod, serving, serve_cli,
-                                    flash_mod, gated_mod, B, args.requests, args.seed)
+    kernel_mods = (flash_mod, gated_mod, lsap_mod, int8_mod)
+    launches, predict, full, _ = serve(torch, cfg_mod, model_mod, serving, serve_cli,
+                                       synthetic, kernel_mods, B, args.requests, args.seed)
     if args.profile:
         profile(torch, predict, full)
     del predict, full
 
     # training at the config's batch, the JAX package's default (16)
     B_TRAIN = cfg_mod.DataConfig().bs
-    kernel_mods = (flash_mod, gated_mod, lsap_mod)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     measured.update(check_train_kernels(torch, F, flash_mod, lsap_mod, B_TRAIN, args.seed))
@@ -675,9 +857,24 @@ def main(argv=None) -> int:
     if args.profile:
         profile_train(torch, *trained[1:])
     del trained
+    torch.cuda.empty_cache()
 
-    # launches: the served run's and the train run's, each counted from 0
-    # just before its path ran
+    # int8 serving: its kernel at the serving shapes, then the path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.inference_mode():
+        measured.update(check_int8_kernels(torch, F, int8_mod, B, args.seed))
+    torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+    torch.cuda.empty_cache()
+    int8_launches, predict, full, state = serve(
+        torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods, B,
+        args.requests, args.seed, quantize=True)
+    check_int8_near_f32(torch, cfg_mod, model_mod, steps, state, predict, full)
+    if args.profile:
+        profile(torch, predict, full)
+    del predict, full, state
+
+    # launches: the served bf16 run's, the train run's and the served int8
+    # run's, each counted from 0 just before its path ran
     entries = [
         ("flash_attention (video self-attention, L=1568)", "flash_long",
          "svol_tpu_torch/csrc/flash_attention.cu", "svol_tpu/ops/pallas/flash_attention.py:167"),
@@ -690,10 +887,15 @@ def main(argv=None) -> int:
          "svol_tpu/ops/pallas/flash_attention.py:256"),
         ("lsap (batched Jonker-Volgenant, 512 x 10 x 10)", "lsap",
          "svol_tpu_torch/csrc/lsap.cu", "svol_tpu/ops/hungarian.py:365"),
+        ("attention_int8 (video self-attention L=1568; also query L=320)", "flash_int8",
+         "svol_tpu_torch/csrc/flash_attention_int8.cu",
+         "svol_tpu/ops/pallas/flash_attention.py:347"),
     ]
-    log(f"launches: served run {launches}, train run {train_launches}")
+    log(f"launches: served bf16 run {launches}, train run {train_launches}, "
+        f"served int8 run {int8_launches}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches.get(key, 0) + train_launches[key], **measured[key])
+                    launches=launches[key] + train_launches[key] + int8_launches[key],
+                    **measured[key])
                for name, key, src, rep in entries]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

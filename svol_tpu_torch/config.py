@@ -3,14 +3,15 @@
 Same names and defaults as the JAX package's ``DataConfig``/``ModelConfig``/
 ``LossConfig``/``TrainConfig`` (the flagship configuration), plus its
 checks. Only the svanet head over the ResNet backbone with the conv7 stem
-and sine positions, the per-frame matcher with the on-device solver, and
-AdamW with StepLR are ported; other values raise.
+and sine positions, the per-frame matcher with the on-device solver,
+AdamW with StepLR, and int8 serving of the ResNet trunk and the flash
+self-attention are ported; other values raise.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 @dataclass
@@ -46,6 +47,14 @@ class ModelConfig:
     # video/query self-attention (ops/kernels/)
     use_pallas_attention: bool = False
     use_flash_attention: bool = True
+    # int8 serving path (ops/quant.py): the ResNet convs run int8 products
+    # with per-output-channel weight scales and per-tensor activation
+    # scales, dynamic or calibrated. Eval only: train mode keeps float
+    # convs. None | 'int8'
+    quantize: Optional[str] = None
+    # with quantize='int8': the flash self-attention runs its QK and PV
+    # products in int8 too (ops/kernels/flash_attention_int8.py)
+    quantize_attention: bool = False
     resnet_stem: str = "conv7"
     compute_dtype: str = "bfloat16"
     moe_experts: int = 0
@@ -81,11 +90,21 @@ class TrainConfig:
 
 
 @dataclass
+class EvalConfig:
+    # static-scale int8: collect activation scales from this many dataset
+    # batches before the run (0 = dynamic scales; needs quantize='int8').
+    # The export and eval CLIs that read it are not ported, so only 0 is
+    # taken; calibrate with ops.quant.calibrate_scales on batches you give.
+    calibration_batches: int = 0
+
+
+@dataclass
 class SvolConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
     def __post_init__(self) -> None:
         self.validate()
@@ -115,6 +134,14 @@ class SvolConfig:
             raise NotImplementedError("moe_experts > 1 is not ported yet")
         if t.freeze_backbone:
             raise NotImplementedError("freeze_backbone is not ported yet")
+        if self.eval.calibration_batches > 0:
+            raise NotImplementedError(
+                "calibration_batches > 0 is not ported yet (it calibrates from the "
+                "dataset); calibrate with ops.quant.calibrate_scales instead")
+        if m.quantize in ("", "none", "None"):
+            m.quantize = None
+        if m.quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {m.quantize!r}")
         if m.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
         if not 0.0 <= m.input_dropout < 1.0:
@@ -132,4 +159,5 @@ class SvolConfig:
         return cls(data=DataConfig(**d.get("data", {})),
                    model=ModelConfig(**d.get("model", {})),
                    loss=LossConfig(**d.get("loss", {})),
-                   train=TrainConfig(**d.get("train", {})))
+                   train=TrainConfig(**d.get("train", {})),
+                   eval=EvalConfig(**d.get("eval", {})))

@@ -6,7 +6,7 @@ flattened to (B, T*h*w, 512) in (t, h, w) order.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -15,10 +15,10 @@ from svol_tpu_torch.models.resnet import resnet18, resnet34
 
 
 class ResNetBackbone(nn.Module):
-    def __init__(self):
+    def __init__(self, quantize: Optional[str] = None):
         super().__init__()
-        self.sketch_backbone = resnet18(include_pool=True)
-        self.video_backbone = resnet34(include_pool=False)
+        self.sketch_backbone = resnet18(include_pool=True, quantize=quantize)
+        self.video_backbone = resnet34(include_pool=False, quantize=quantize)
 
     def forward(self, sketch: torch.Tensor, video: torch.Tensor,
                 sketch_scale: float = 1.0, video_scale: float = 1.0,

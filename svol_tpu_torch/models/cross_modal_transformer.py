@@ -30,12 +30,14 @@ from svol_tpu_torch.models.layers import (
 class CrossModalTransformerLayer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8,
                  dim_feedforward: int = 2048, use_pallas: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, flash_int8: bool = False):
         super().__init__()
         self.sketch_video_cross_attn = GatedSketchVideoAttention(
             d_model, nhead, use_kernel=use_pallas)
-        self.content_self_attn = MultiheadAttention(d_model, nhead, use_flash)
-        self.token_self_attn = MultiheadAttention(d_model, nhead, use_flash)
+        self.content_self_attn = MultiheadAttention(d_model, nhead, use_flash,
+                                                    flash_int8)
+        self.token_self_attn = MultiheadAttention(d_model, nhead, use_flash,
+                                                  flash_int8)
         self.content_token_cross_attn = MultiheadAttention(d_model, nhead)
         self.mlp1 = TransformerMLP(d_model, dim_feedforward, d_model)
         self.mlp2 = TransformerMLP(d_model, dim_feedforward, d_model)
@@ -66,12 +68,12 @@ class CrossModalTransformer(nn.Module):
 
     def __init__(self, d_model: int = 256, nhead: int = 8, num_layers: int = 2,
                  dim_feedforward: int = 2048, use_pallas: bool = False,
-                 use_flash: bool = False):
+                 use_flash: bool = False, flash_int8: bool = False):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layer{i}", CrossModalTransformerLayer(
-                d_model, nhead, dim_feedforward, use_pallas, use_flash))
+                d_model, nhead, dim_feedforward, use_pallas, use_flash, flash_int8))
 
     def forward(self, src_vid, src_skch, vid_pad_mask, vid_pos, query_embed,
                 ) -> torch.Tensor:

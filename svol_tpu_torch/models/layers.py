@@ -15,10 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from svol_tpu_torch.ops.kernels.flash_attention import flash_attention
+from svol_tpu_torch.ops.kernels.flash_attention_int8 import flash_attention_int8
 from svol_tpu_torch.ops.kernels.gated_attention import (
     gated_attention,
     gated_attention_reference,
 )
+from svol_tpu_torch.ops.quant import record_amax
 
 # torch.nn.LayerNorm default eps (flax default is 1e-6)
 LN_EPS = 1e-5
@@ -50,14 +52,26 @@ class MultiheadAttention(nn.Module):
     max and sum under a bf16 compute dtype, else in f32. Masked logits are
     filled with the dtype's finite minimum, so an all-padded row gives
     uniform weights, not NaN.
+
+    ``flash_int8`` (serving, eval mode only) sends the flash path through
+    the int8 attention: with static scales when the ``amax_q/k/v`` buffers
+    hold calibrated abs-maxes, dynamic ones while they are None. With
+    ``calibrating`` set it records the projected q, k and v's running
+    abs-maxes and runs the exact flash kernel.
     """
 
-    def __init__(self, d_model: int, num_heads: int, use_flash: bool = False):
+    def __init__(self, d_model: int, num_heads: int, use_flash: bool = False,
+                 flash_int8: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.d_model, self.num_heads = d_model, num_heads
         self.use_flash = use_flash
+        self.flash_int8 = flash_int8
+        if flash_int8:
+            for name in ("amax_q", "amax_k", "amax_v"):
+                self.register_buffer(name, None)
+            self.calibrating = False
         self.q_proj = Linear(d_model, d_model)
         self.k_proj = Linear(d_model, d_model)
         self.v_proj = Linear(d_model, d_model)
@@ -78,11 +92,19 @@ class MultiheadAttention(nn.Module):
         scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
 
         if self.use_flash and key_padding_mask is None:
-            # the kernel scales q in its dtype itself; its backward applies
-            # the unrounded scale in f32, as the JAX kernel does
-            out = flash_attention(q.reshape(B * H, Lq, hd),
-                                  k.reshape(B * H, Lk, hd),
-                                  v.reshape(B * H, Lk, hd), hd ** -0.5)
+            qf, kf, vf = (t.reshape(B * H, -1, hd) for t in (q, k, v))
+            int8 = self.flash_int8 and not self.training
+            if int8 and self.calibrating:
+                for name, t in (("amax_q", q), ("amax_k", k), ("amax_v", v)):
+                    record_amax(self, name, t)
+            if int8 and not self.calibrating:
+                static = None if self.amax_q is None else (
+                    self.amax_q, self.amax_k, self.amax_v)
+                out = flash_attention_int8(qf, kf, vf, hd ** -0.5, static)
+            else:
+                # the kernel scales q in its dtype itself; its backward
+                # applies the unrounded scale in f32, as the JAX kernel does
+                out = flash_attention(qf, kf, vf, hd ** -0.5)
             out = out.reshape(B, H, Lq, hd)
         elif q.dtype == torch.bfloat16:
             # bf16 logits; max-subtraction and normalizing sum in f32

@@ -5,7 +5,9 @@ uint8 pixels are cast to the compute dtype on the device and the /255
 normalization folds into the stem conv's kernel (conv is linear); float
 pixels in [0, 1] pass unscaled. ``model.train()`` / ``.eval()`` play the
 JAX ``train=`` flag: BatchNorm batch statistics and input dropout in train
-mode, running statistics and no dropout in eval mode.
+mode, running statistics and no dropout in eval mode. With
+``quantize='int8'`` the eval-mode forward serves int8 (ops/quant.py, and
+the int8 attention with ``quantize_attention``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ class SketchLocalizationModel(nn.Module):
         super().__init__()
         cfg = config.model
         self.dtype = DTYPES[cfg.compute_dtype]
-        self.backbone = ResNetBackbone()
+        self.backbone = ResNetBackbone(cfg.quantize)
         vid_dim, skch_dim = backbone_feature_dims(cfg.backbone)
         self.tokens_per_frame = tokens_per_frame(cfg.backbone, config.data.image_size)
         self.head = SVANet(
@@ -43,6 +45,7 @@ class SketchLocalizationModel(nn.Module):
             use_pallas=cfg.use_pallas_attention,
             use_flash=cfg.use_flash_attention,
             input_dropout=cfg.input_dropout,
+            flash_int8=cfg.quantize == "int8" and cfg.quantize_attention,
         )
 
     def forward(self, src_sketch: torch.Tensor, src_video: torch.Tensor,

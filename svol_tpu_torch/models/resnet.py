@@ -8,38 +8,60 @@ running statistics in eval mode.
 
 Parameters stay float32 (as flax keeps them) and are cast to the
 activation's dtype at each use, so a bfloat16 forward rounds exactly where
-the JAX model's ``dtype=bfloat16`` modules do.
+the JAX model's ``dtype=bfloat16`` modules do. With ``quantize='int8'``
+every conv runs the int8 path of ops/quant.py in eval mode; train mode
+keeps the float convs, as the JAX package's ``quantize=None if train``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from svol_tpu_torch.ops.quant import int8_conv, record_amax
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax convention: ra = 0.9 * ra + 0.1 * batch statistic
 
 
 class QuantizableConv(nn.Module):
-    """Bias-free conv, float path (the int8 path waits for the int8 slice).
-    ``weight`` is OIHW; ``kernel_scale`` folds a constant input scale into
-    the kernel: conv(s*x, k) == conv(x, s*k), which is how uint8 pixels skip
-    a separate /255 pass."""
+    """Bias-free conv. ``weight`` is OIHW; ``kernel_scale`` folds a constant
+    input scale into the kernel: conv(s*x, k) == conv(x, s*k), which is how
+    uint8 pixels skip a separate /255 pass.
+
+    ``quantize='int8'`` in eval mode runs ``int8_conv`` on the scaled
+    kernel: with static scales when the ``amax`` buffer holds a calibrated
+    abs-max, dynamic ones while it is None. With ``calibrating`` set, the
+    conv records its input's running abs-max into ``amax`` and returns the
+    exact float output."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(features, in_ch, kernel_size, kernel_size))
         self.stride = stride
         self.padding = padding
+        self.quantize = quantize
+        if quantize == "int8":
+            self.register_buffer("amax", None)
+            self.calibrating = False
+        elif quantize is not None:
+            raise NotImplementedError(f"quantize={quantize!r}")
 
     def forward(self, x: torch.Tensor, kernel_scale: float = 1.0) -> torch.Tensor:
         w = self.weight
         if kernel_scale != 1.0:
             w = w * kernel_scale
+        if self.quantize and not self.training:
+            if self.calibrating:
+                record_amax(self, "amax", x)
+            else:
+                return int8_conv(x, w, self.stride, self.padding,
+                                 static_amax=self.amax)
         return F.conv2d(x, w.to(x.dtype), stride=self.stride,
                         padding=self.padding)
 
@@ -80,15 +102,17 @@ class BatchNorm(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_ch: int, filters: int, stride: int = 1):
+    def __init__(self, in_ch: int, filters: int, stride: int = 1,
+                 quantize: Optional[str] = None):
         super().__init__()
-        self.conv1 = QuantizableConv(in_ch, filters, 3, stride, 1)
+        self.conv1 = QuantizableConv(in_ch, filters, 3, stride, 1, quantize)
         self.bn1 = BatchNorm(filters)
-        self.conv2 = QuantizableConv(filters, filters, 3, 1, 1)
+        self.conv2 = QuantizableConv(filters, filters, 3, 1, 1, quantize)
         self.bn2 = BatchNorm(filters)
         self.has_downsample = stride != 1 or in_ch != filters
         if self.has_downsample:
-            self.downsample_conv = QuantizableConv(in_ch, filters, 1, stride)
+            self.downsample_conv = QuantizableConv(in_ch, filters, 1, stride,
+                                                   quantize=quantize)
             self.downsample_bn = BatchNorm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -104,10 +128,12 @@ class ResNet(nn.Module):
     """``include_pool=True`` ends in global average pooling, (N, C) — the
     sketch path; otherwise the final map is returned NHWC — the video path."""
 
-    def __init__(self, stage_sizes: Sequence[int], include_pool: bool = False):
+    def __init__(self, stage_sizes: Sequence[int], include_pool: bool = False,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.include_pool = include_pool
-        self.conv1 = QuantizableConv(3, 64, 7, stride=2, padding=3)
+        self.conv1 = QuantizableConv(3, 64, 7, stride=2, padding=3,
+                                     quantize=quantize)
         self.bn1 = BatchNorm(64)
         in_ch = 64
         self.block_names = []
@@ -116,7 +142,7 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if stage > 0 and b == 0 else 1
                 name = f"layer{stage + 1}_{b}"
-                self.add_module(name, BasicBlock(in_ch, filters, stride))
+                self.add_module(name, BasicBlock(in_ch, filters, stride, quantize))
                 self.block_names.append(name)
                 in_ch = filters
 
@@ -132,9 +158,9 @@ class ResNet(nn.Module):
         return y.permute(0, 2, 3, 1)  # (N, h, w, C)
 
 
-def resnet18(include_pool: bool = False) -> ResNet:
-    return ResNet((2, 2, 2, 2), include_pool)
+def resnet18(include_pool: bool = False, quantize: Optional[str] = None) -> ResNet:
+    return ResNet((2, 2, 2, 2), include_pool, quantize)
 
 
-def resnet34(include_pool: bool = False) -> ResNet:
-    return ResNet((3, 4, 6, 3), include_pool)
+def resnet34(include_pool: bool = False, quantize: Optional[str] = None) -> ResNet:
+    return ResNet((3, 4, 6, 3), include_pool, quantize)

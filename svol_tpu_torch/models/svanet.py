@@ -22,7 +22,7 @@ class SVANet(nn.Module):
                  aux_loss: bool = True, n_input_proj: int = 2,
                  num_classes: int = 2, video_position_embedding: str = "sine",
                  use_pallas: bool = False, use_flash: bool = False,
-                 input_dropout: float = 0.0):
+                 input_dropout: float = 0.0, flash_int8: bool = False):
         super().__init__()
         self.aux_loss = aux_loss
         self.num_layers = num_layers
@@ -34,7 +34,8 @@ class SVANet(nn.Module):
             video_position_embedding, hidden_dim)
         self.query_embed = nn.Parameter(torch.empty(num_queries, hidden_dim))
         self.transformer = CrossModalTransformer(
-            hidden_dim, nheads, num_layers, dim_feedforward, use_pallas, use_flash)
+            hidden_dim, nheads, num_layers, dim_feedforward, use_pallas, use_flash,
+            flash_int8)
         self.class_embed = Linear(hidden_dim, num_classes)
         self.bbox_embed = BoxHeadMLP(hidden_dim, 4, 3)
 

@@ -19,7 +19,8 @@ from typing import Dict, List
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "gated_attention", "lsap")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_int8",
+                  "gated_attention", "lsap")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

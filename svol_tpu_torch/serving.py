@@ -1,13 +1,16 @@
 """Serving export: one directory a server can load without the training code.
 
-    model.pt    the model's ``state_dict`` (``torch.save``)
+    model.pt    the model's ``state_dict`` (``torch.save``), with the
+                calibrated int8 scales where the model holds them
     meta.json   input signature, provenance and the model config
 
 The JAX package bakes its weights into a StableHLO module; here the
 artifact is the state dict plus the config needed to rebuild the model.
 ``load_exported`` returns the production predict path — uint8 pixels
 normalized on the device, foreground softmax scores, clamped xyxy boxes —
-over numpy batches.
+over numpy batches. A ``quantize='int8'`` model serves the int8 path:
+with the scales its ``state_dict`` carries (static, from
+``ops.quant.calibrate_scales``), else with dynamic ones.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from svol_tpu_torch import resolve_device
 from svol_tpu_torch.config import SvolConfig
 from svol_tpu_torch.models.model import SketchLocalizationModel
+from svol_tpu_torch.ops.quant import load_quant_scales, quant_scales
 from svol_tpu_torch.train.steps import make_predict_fn
 
 ARTIFACT_FILE = "model.pt"
@@ -41,7 +45,9 @@ def _input_specs(config: SvolConfig, batch_size: int):
 def export_model(config: SvolConfig, state_dict: Dict[str, torch.Tensor],
                  out_dir: str, batch_size: int = 8) -> str:
     """Write ``state_dict`` and ``meta.json`` for a server of static batch
-    ``batch_size`` that takes uint8 pixels. Returns ``out_dir``."""
+    ``batch_size`` that takes uint8 pixels. Returns ``out_dir``. A
+    calibrated int8 model's ``state_dict`` holds its scales, and the
+    artifact keeps them."""
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
                os.path.join(out_dir, ARTIFACT_FILE))
@@ -56,7 +62,7 @@ def export_model(config: SvolConfig, state_dict: Dict[str, torch.Tensor],
         "image_size": config.data.image_size,
         "pixel_dtype": "uint8",
         "platforms": ["cuda", "cpu"],
-        "quantize": None,
+        "quantize": config.model.quantize,
         "torch_version": torch.__version__,
         "config": config.to_dict(),
     }
@@ -77,6 +83,7 @@ def load_exported(path: str, device=None,
     model = SketchLocalizationModel(SvolConfig.from_dict(meta["config"]))
     state = torch.load(os.path.join(path, ARTIFACT_FILE), map_location="cpu",
                        weights_only=True)
+    load_quant_scales(model, quant_scales(state))
     model.load_state_dict(state, strict=True)
     model.eval().to(dev)
     predict_t = make_predict_fn(model)

@@ -31,6 +31,8 @@ from svol_tpu_torch.models.model import SketchLocalizationModel
 from svol_tpu_torch.models.positional import PositionEmbeddingSine
 from svol_tpu_torch.train.steps import make_predict_fn
 from svol_tpu_torch.utils.jax_weights import convert_jax_variables
+from torch_port_reference_cache import shared
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 T, K, IMG, B, HID, HEADS = 2, 2, 64, 2, 32, 4
 SMALL = dict(hidden_dim=HID, nheads=HEADS, num_layers=2, num_queries=T * K,
@@ -60,6 +62,12 @@ def fill_variables(shapes, rng):
     return unflatten_dict(out)
 
 
+def jax_predict_from(out, variables, batch):
+    """The JAX package's ``make_predict_fn`` on outputs already computed
+    (its apply hands them back), so that the model is traced once."""
+    return jax_make_predict_fn(lambda *_, **__: out)(variables, batch)
+
+
 def abstract_init(module, *args, **kwargs):
     return jax.eval_shape(
         lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
@@ -76,54 +84,83 @@ def make_batch(rng):
     }
 
 
-@pytest.fixture(scope="module")
-def pair():
-    """The JAX model's outputs and the converted port model, built once."""
-    cfg = SvolConfig(data=DataConfig(num_frames=T, max_boxes_per_frame=K,
-                                     image_size=IMG),
-                     model=ModelConfig(**SMALL))
-    model = build_model(cfg)
+def jax_inputs():
+    """The small model's weights (numpy draws into the flax variable tree)
+    and a batch, shared with test_torch_port_int8.py."""
+    model = build_model(jax_config())
     batch = make_batch(np.random.default_rng(0))
-    variables = fill_variables(abstract_init(model, **batch),
-                               np.random.default_rng(1))
+    return {"variables": fill_variables(abstract_init(model, **batch),
+                                        np.random.default_rng(1)),
+            "batch": batch}
+
+
+def jax_config(**model):
+    return SvolConfig(data=DataConfig(num_frames=T, max_boxes_per_frame=K,
+                                      image_size=IMG),
+                      model=ModelConfig(**dict(SMALL, **model)))
+
+
+def jax_predict_reference(inputs):
+    """The JAX model's outputs, backbone features, scores and boxes on
+    ``inputs``, as numpy."""
+    model = build_model(jax_config())
 
     def forward(v, b):
         out, state = model.apply(
             v, **b, capture_intermediates=lambda m, _: isinstance(m, JaxResNetBackbone),
             mutable=["intermediates"])
         feats = state["intermediates"]["backbone"]["__call__"][0]
-        scores, boxes = jax_make_predict_fn(model.apply)(v, b)
-        return out, feats, scores, boxes
+        return (out, feats) + jax_predict_from(out, v, b)
 
-    out, feats, scores, boxes = jax.jit(forward)(variables, batch)
-    port_cfg = PortConfig(data=PortData(num_frames=T, image_size=IMG),
-                          model=PortModel(**SMALL))
-    port = SketchLocalizationModel(port_cfg).eval()
-    state = convert_jax_variables(variables)
-    port.load_state_dict(state, strict=True)
+    out, feats, scores, boxes = jax.jit(forward)(inputs["variables"], inputs["batch"])
     return {
-        "variables": variables, "state": state, "port": port, "batch": batch,
         "out": jax.tree.map(np.asarray, out),
         "feats": [np.asarray(f) for f in feats],
         "scores": np.asarray(scores), "boxes": np.asarray(boxes),
     }
 
 
+# Each reference is built by one xdist worker per run and loaded by the
+# others (tests/torch_port_reference_cache.py).
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    return shared(tmp_path_factory, "small_model_jax_inputs", jax_inputs)
+
+
+@pytest.fixture(scope="module")
+def port(inputs):
+    """The port model with the JAX weights, and its state dict."""
+    port_cfg = PortConfig(data=PortData(num_frames=T, image_size=IMG),
+                          model=PortModel(**SMALL))
+    model = SketchLocalizationModel(port_cfg).eval()
+    state = convert_jax_variables(inputs["variables"])
+    model.load_state_dict(state, strict=True)
+    return model, state
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory, inputs, port):
+    """The JAX model's outputs and the converted port model."""
+    ref = shared(tmp_path_factory, "small_model_jax_predict",
+                 lambda: jax_predict_reference(inputs))
+    return dict(ref, **inputs, port=port[0], state=port[1])
+
+
 def torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def test_convert_jax_variables_covers_every_port_parameter(pair):
-    state, port = pair["state"], pair["port"]
-    expected = dict(port.state_dict())
+def test_convert_jax_variables_covers_every_port_parameter(inputs, port):
+    model, state = port
+    expected = dict(model.state_dict())
     assert set(state) == set(expected)
-    n_leaves = sum(len(flatten_dict(pair["variables"][c]))
+    n_leaves = sum(len(flatten_dict(inputs["variables"][c]))
                    for c in ("params", "batch_stats"))
     assert len(state) == n_leaves
     for name, t in state.items():
         assert t.shape == expected[name].shape, name
     # Dense (in, out) -> Linear (out, in); conv HWIO -> OIHW
-    p = flatten_dict(pair["variables"]["params"], sep="/")
+    p = flatten_dict(inputs["variables"]["params"], sep="/")
     np.testing.assert_array_equal(
         state["head.class_embed.weight"].numpy(), p["head/class_embed/kernel"].T)
     np.testing.assert_array_equal(

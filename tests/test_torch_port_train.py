@@ -49,6 +49,7 @@ from svol_tpu_torch.ops.kernels.gated_attention import gated_attention
 from svol_tpu_torch.ops.kernels.lsap import lsap
 from svol_tpu_torch.train.state import clip_by_global_norm, create_train_state, global_norm
 from svol_tpu_torch.train.steps import make_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 T, K, IMG, B, HID, HEADS = 2, 2, 64, 2, 32, 4
 SMALL = dict(hidden_dim=HID, nheads=HEADS, num_layers=2, num_queries=T * K,
@@ -358,9 +359,26 @@ def test_train_state_entry_requires_the_card_unless_told(monkeypatch):
 @pytest.mark.parametrize("section,field,value", [
     ("loss", "matcher", "video_matcher"), ("train", "optimizer", "sgd"),
     ("train", "scheduler", "reducelronplateau"), ("train", "freeze_backbone", True),
-    ("model", "moe_experts", 4)])
+    ("model", "moe_experts", 4), ("eval", "calibration_batches", 1)])
 def test_config_refuses_what_is_not_ported(section, field, value):
     cfg = port_cfg()
     setattr(getattr(cfg, section), field, value)
     with pytest.raises(NotImplementedError):
         cfg.validate()
+
+
+@pytest.mark.parametrize("value,accepted", [("int8", "int8"), ("none", None),
+                                            ("int4", ValueError)])
+def test_config_takes_int8_serving_and_refuses_other_modes(value, accepted):
+    """``quantize`` as the JAX config takes it: int8 (ported with the
+    serving slice), a spelling of no quantization, or an error."""
+    cfg = port_cfg()
+    cfg.model.quantize, cfg.model.quantize_attention = value, True
+    if accepted is ValueError:
+        with pytest.raises(ValueError, match="quantize"):
+            cfg.validate()
+        return
+    cfg.validate()
+    assert cfg.model.quantize == accepted
+    again = port_config.SvolConfig.from_dict(cfg.to_dict())
+    assert again.model.quantize == accepted and again.model.quantize_attention

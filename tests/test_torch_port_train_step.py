@@ -40,6 +40,8 @@ from svol_tpu_torch.train.steps import make_train_step
 from svol_tpu_torch.utils.jax_weights import convert_jax_variables, port_state_to_jax_numpy
 from test_torch_port_model import abstract_init, fill_variables
 from test_torch_port_train import B, jax_cfg, port_cfg
+from torch_port_reference_cache import shared
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_STEPS = 3
 INPUTS = ("src_sketch", "src_video", "src_sketch_mask", "src_video_mask")
@@ -117,6 +119,15 @@ def jax_trajectory(variables, batches, compute_dtype):
         jax_matcher.hungarian = solver
 
 
+def jax_inputs():
+    """The weights (numpy draws into the flax tree) and the batches."""
+    batches = [sample_train_batch(port_cfg(), B, seed=20 + i) for i in range(N_STEPS)]
+    variables = fill_variables(
+        abstract_init(build_model(jax_cfg()), **{k: batches[0][k] for k in INPUTS}),
+        np.random.default_rng(21))
+    return {"variables": variables, "batches": batches}
+
+
 def jax_reference():
     """Weights, batches and the JAX package's float64 trajectory on them
     (its parameters stay float32; the criterion, matcher and the attention
@@ -130,18 +141,25 @@ def jax_reference():
     ``__main__``). In float64 the gates agree and every tolerance holds.
     The port's float32 forward and its float32 gradients outside the
     backbones are held to this reference as well."""
-    batches = [sample_train_batch(port_cfg(), B, seed=20 + i) for i in range(N_STEPS)]
-    variables = fill_variables(
-        abstract_init(build_model(jax_cfg()), **{k: batches[0][k] for k in INPUTS}),
-        np.random.default_rng(21))
-    side = jax_trajectory(variables, batches, "float64")
-    side.update(variables=variables, batches=batches)
+    inputs = jax_inputs()
+    side = jax_trajectory(inputs["variables"], inputs["batches"], "float64")
+    side.update(inputs)
     return side
 
 
+# Each reference is built by one xdist worker per run and loaded by the
+# others (tests/torch_port_reference_cache.py).
 @pytest.fixture(scope="module")
-def jax_side():
-    return jax_reference()
+def inputs(tmp_path_factory):
+    return shared(tmp_path_factory, "train_step_jax_inputs", jax_inputs)
+
+
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory, inputs):
+    trajectory = shared(tmp_path_factory, "train_step_jax_trajectory",
+                        lambda: jax_trajectory(inputs["variables"], inputs["batches"],
+                                               "float64"))
+    return dict(trajectory, **inputs)
 
 
 def port_model(variables, float64=False):
@@ -312,11 +330,11 @@ def test_adamw_steplr_trajectory_matches_jax(jax_side):
     assert lrs == pytest.approx([1e-4, 1e-4, 1e-5], rel=1e-12)
 
 
-def test_weights_round_trip_through_the_flax_names(jax_side):
-    state = convert_jax_variables(jax_side["variables"])
+def test_weights_round_trip_through_the_flax_names(inputs):
+    state = convert_jax_variables(inputs["variables"])
     back = port_state_to_jax_numpy(state)
     for coll in ("params", "batch_stats"):
-        got, want = tree(back[coll]), tree(jax_side["variables"][coll])
+        got, want = tree(back[coll]), tree(inputs["variables"][coll])
         assert set(got) == set(want)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
