@@ -51,7 +51,25 @@ Phases (each failure exits non-zero; nothing is swallowed):
      launches at each of L = 1568 and L = 320 and 2 gated launches per
      batch and no bf16 flash launch, and the int8 predict held near the f32
      predict of the same weights; (--profile) kernel time by name over one
-     int8 batch-8 predict.
+     int8 batch-8 predict;
+ 13. ViT kernels: in float32 (TF32 off) and bfloat16, the (B, L, D) flash
+     attention against its plain version at the ViT-B/16 shapes (B = 256
+     frames and 8 sketches, L = 197, D = 768, H = 12) and the LayerNorm
+     kernel against its plain version at (50,432, 768) rows and at the
+     CLS-only rows (8, 1, 768) of a (8, 197, 768) tensor, eps 1e-12; the
+     head's flash attention (L = 32) and gated attention (L = 32) at the
+     ViT head's shapes; times of kernel, plain version and the nearest
+     library call (scaled_dot_product_attention on a head-major copy, made
+     outside the timed window; torch.nn.functional.layer_norm), beside a
+     bound from bytes and operations;
+ 14. ViT end to end: the flagship head over the full-width ViT-B/16
+     backbone in float32 with its kernels against the same model on its
+     plain paths, on two clips;
+ 15. ViT serve: the bf16 ViT flagship exported and served as in phase 5,
+     the launch counters at 24 (B, L, D) flash, 50 LayerNorm, 2 + 2 flash
+     (L = 32 and L = 320) and 2 gated launches per batch, no L = 1568
+     flash launch; peak memory of the direct predict; (--profile) kernel
+     time by name over one ViT batch-8 predict.
 It prints the card's name and power limit, a {"kernels": [...]} line and,
 last, {"ok": true, "device": {...}}.
 """
@@ -116,6 +134,29 @@ N_TRAIN_STEPS = 20
 # launches per served batch: flash at L = 1568 and L = 320 and the gated op
 # in each of the 2 layers; in int8 the int8 attention takes both flash sites
 PER_BATCH = {"flash_long": 2, "flash_short": 2, "gated": 2}
+# with the ViT backbone: the (B, L, D) flash in each of the 12 encoder
+# layers of 2 ViTs, 25 LayerNorms in each ViT (2 a layer and the final
+# one), and the head's flash at L = T = 32 (one token per frame) and
+# L = 320, both four threads a row, and the gated op
+PER_BATCH_VIT = {"flash_short": 4, "gated": 2, "flash_bld": 24, "layer_norm": 50}
+# LayerNorm kernel against plain version, per element: |kernel - plain| <=
+# LN_RTOL * |plain| + LN_ATOL in f32: the two means are sums in other
+# orders (a few ulps of the mean), and rsqrtf is within 2 ulps; in bf16 one
+# bf16 ulp of the plain output more (each side rounds its f32 result once)
+LN_RTOL, LN_ATOL = 2.0 ** -20, 1e-6
+VIT_EPS = 1e-12
+# flash in bf16 at L = 32, per element: |kernel - plain| <= 2^-8 (w |v| +
+# |plain|) + 2e-5. Each side rounds every softmax weight to bf16 (the
+# kernel unnormalized, the plain version normalized), which moves the
+# output by at most 2^-9 w |v| each; each rounds its output once (2^-9
+# |plain| each); the f32 arithmetic before differs by rounding (the f32
+# attention tolerance). At L = 1568 and 320 the outputs are small and the
+# rtol / atol above hold; at L = 32 a few keys carry each row.
+FLASH_BF16_WEIGHT_ULPS = 2.0 ** -8
+# gated in bf16: the two g (att) round to bf16 at most one ulp apart, and
+# gated = mem g differs by mem times that ulp plus one rounding of its own
+# (the kernel multiplies by its f32 g, the plain version by the bf16 one)
+GATED_BF16_ULPS = 1.0
 PER_BATCH_INT8 = {"gated": 2, "flash_int8": 4}
 # int8 attention, kernel against plain version, per element:
 # |kernel - plain| <= (L + 10) u |plain| + n / denom, u = 2^-24. Both take
@@ -153,6 +194,24 @@ def gpu_query(fields: str, fmt: str = "csv,noheader") -> str:
         ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(out: str) -> str:
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: its (mangled)
+    entry name, registers, shared memory and spills; anything else nvcc
+    said (warnings) as it came."""
+    lines, name, spills = [], None, ""
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and name is not None:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+        elif "ptxas info" not in line and line.strip():
+            lines.append(line)
+    return "\n".join(lines)
 
 
 def gpu_line() -> str:
@@ -361,21 +420,211 @@ def check_end_to_end(torch, cfg_mod, model_mod, steps, seed: int):
         raise AssertionError(f"end-to-end f32 disagrees: {err}")
 
 
+def bf16_ulp(torch, x):
+    """One bfloat16 spacing at |x| (8 significant bits)."""
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_vit_kernels(torch, F, flash_mod, gated_mod, ln_mod, seed: int):
+    """Phase 13. Returns {entry name: measurements} at the bf16 ViT video
+    shapes (B = 256 frames)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    dev = "cuda"
+    results = {}
+    L, D, H = 197, 768, 12
+    hd = D // H
+    scale = hd ** -0.5
+    for B in (256, 8):
+        for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            q, k, v = (torch.randn(B, L, D, generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            got = flash_mod.flash_attention_bld(q, k, v, scale, H).float()
+            want = flash_mod.attention_bld_reference(q, k, v, scale, H).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            limit = FLASH_RTOL[dtype_name] * want.abs() + FLASH_ATOL[dtype_name]
+            worst = (diff / limit).max().item()
+            log(f"flash bld B={B} L={L} D={D} H={H} {dtype_name}: max_abs_err={err:.3e}, "
+                f"max |plain| {want.abs().max().item():.3e}, worst err/limit {worst:.3f} "
+                f"(rtol {FLASH_RTOL[dtype_name]:.3e}, atol {FLASH_ATOL[dtype_name]:.3e})")
+            if not worst <= 1.0:
+                raise AssertionError(f"flash bld B={B} {dtype_name} disagrees: "
+                                     f"err/limit {worst} > 1")
+            del got, want, diff, limit
+            if dtype_name != "bfloat16":
+                continue
+            ms = time_ms(torch, lambda: flash_mod.flash_attention_bld(q, k, v, scale, H))
+            plain = time_ms(torch, lambda: flash_mod.attention_bld_reference(
+                q, k, v, scale, H), iters=5, warmup=1)
+            # SDPA wants head-major operands: the copies are made here,
+            # outside the timed window
+            q4, k4, v4 = (t.view(B, L, H, hd).transpose(1, 2).contiguous()
+                          for t in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+            nbytes = 2 * 4 * B * L * D  # bf16 q, k, v read, o written
+            b, by = bound_ms(nbytes, 4 * B * H * L * L * hd, dtype_name)
+            log(f"flash bld B={B} bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa on a "
+                f"head-major copy {lib:.4f} ms, bound {b:.4f} ms ({by})")
+            if B == 256:
+                results["flash_bld"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                            bound_ms=b, bound_by=by, library_ms=lib)
+            del q, k, v, q4, k4, v4
+
+    for rows, cls_only in ((256 * L, False), (8, True)):
+        for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            if cls_only:  # the CLS rows of (8, 197, 768), read in place
+                x = torch.randn(rows, L, D, generator=gen, device=dev).to(dt)[:, :1]
+            else:
+                x = (2.0 * torch.randn(rows, D, generator=gen, device=dev) + 0.5).to(dt)
+            w = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+            b_ = 0.1 * torch.randn(D, generator=gen, device=dev)
+            got = ln_mod.fused_layer_norm(x, w, b_, VIT_EPS).float()
+            want = ln_mod.layer_norm_reference(x, w, b_, VIT_EPS).float()
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            limit = LN_RTOL * want.abs() + LN_ATOL
+            if dtype_name == "bfloat16":
+                limit = limit + bf16_ulp(torch, want)
+            worst = (diff / limit).max().item()
+            log(f"layer_norm {tuple(x.shape)} {dtype_name}: max_abs_err={err:.3e}, max |plain| "
+                f"{want.abs().max().item():.3e}, worst err/limit {worst:.3f} (rtol "
+                f"{LN_RTOL:.3e}, atol {LN_ATOL:.0e}" + (", + 1 bf16 ulp)" if dt ==
+                                                         torch.bfloat16 else ")"))
+            if not worst <= 1.0:
+                raise AssertionError(f"layer_norm {tuple(x.shape)} {dtype_name} disagrees: "
+                                     f"err/limit {worst} > 1")
+            if dtype_name != "bfloat16" or cls_only:
+                continue
+            ms = time_ms(torch, lambda: ln_mod.fused_layer_norm(x, w, b_, VIT_EPS))
+            plain = time_ms(torch, lambda: ln_mod.layer_norm_reference(x, w, b_, VIT_EPS))
+            lib = time_ms(torch, lambda: F.layer_norm(x, (D,), w.to(dt), b_.to(dt), VIT_EPS))
+            nbytes = 2 * 2 * rows * D + 2 * 4 * D
+            b, by = bound_ms(nbytes, 8 * rows * D, "float32")
+            log(f"layer_norm ({rows}, {D}) bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"F.layer_norm {lib:.4f} ms, bound {b:.4f} ms ({by})")
+            results["layer_norm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                         bound_ms=b, bound_by=by, library_ms=lib)
+        del x, got, want, diff, limit
+
+    # the head over ViT features: one token per frame, so its video
+    # self-attention and the gated op run at L = T = 32, where few keys
+    # carry each softmax: bf16 is held to limits derived per element from
+    # the plain version (FLASH_BF16_WEIGHT_ULPS, GATED_BF16_ULPS)
+    B, L, hd, Hh, Dh = 8, 32, 32, 8, 256
+    BH = B * Hh
+    bound_w = (6.0 / (2 * Dh)) ** 0.5
+    for dtype_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        q, k, v = (torch.randn(BH, L, hd, generator=gen, device=dev).to(dt) for _ in range(3))
+        got = flash_mod.flash_attention(q, k, v, hd ** -0.5).float()
+        want = flash_mod.attention_reference(q, k, v, hd ** -0.5).float()
+        if dt == torch.bfloat16:
+            w = torch.softmax(torch.matmul((q * float(torch.tensor(hd ** -0.5, dtype=dt))).float(),
+                                           k.float().transpose(-1, -2)), dim=-1)
+            limit = FLASH_BF16_WEIGHT_ULPS * (torch.matmul(w, v.float().abs()) + want.abs()) \
+                + FLASH_ATOL["float32"]
+        else:
+            limit = FLASH_RTOL[dtype_name] * want.abs() + FLASH_ATOL[dtype_name]
+        f_diff = (got - want).abs()
+        f_worst = (f_diff / limit).max().item()
+        sketch = torch.randn(B, 1, Dh, generator=gen, device=dev).to(dt)
+        kin, mem = (torch.randn(B, L, Dh, generator=gen, device=dev).to(dt) for _ in range(2))
+        wq, wk = ((torch.rand(Dh, Dh, generator=gen, device=dev) * 2 - 1) * bound_w
+                  for _ in range(2))
+        bq, bk = (0.1 * torch.randn(Dh, generator=gen, device=dev) for _ in range(2))
+        args = (sketch, kin, mem, wq, bq, wk, bk, Hh)
+        (att, out), (r_att, r_out) = (gated_mod.gated_attention(*args),
+                                      gated_mod.gated_attention_reference(*args))
+        torch.cuda.synchronize()
+        g_errs = [(a.float() - r.float()).abs() for a, r in ((att, r_att), (out, r_out))]
+        if dt == torch.bfloat16:
+            # g rounds to bf16 on each side (1 ulp apart at most); the
+            # kernel multiplies mem by its f32 g, the plain version by the
+            # rounded one, then each rounds the product
+            u = bf16_ulp(torch, r_att.float())
+            g_lims = [GATED_BF16_ULPS * u + 1e-6,
+                      GATED_BF16_ULPS * (mem.float().abs() * u[..., None]
+                                         + bf16_ulp(torch, r_out.float())) + 1e-6]
+        else:
+            g_lims = [GATED_RTOL[dtype_name] * r.float().abs().max()
+                      for r in (r_att, r_out)]
+        g_worst = [(e / lim).max().item() for e, lim in zip(g_errs, g_lims)]
+        log(f"ViT head L={L} {dtype_name}: flash max_abs_err={f_diff.max().item():.3e} "
+            f"(max |plain| {want.abs().max().item():.3e}, worst err/limit {f_worst:.3f}); "
+            f"gated max_abs_err att={g_errs[0].max().item():.3e}, "
+            f"gated={g_errs[1].max().item():.3e} (max |plain| "
+            f"{r_att.float().abs().max().item():.3e}, {r_out.float().abs().max().item():.3e}; "
+            f"worst err/limit {g_worst[0]:.3f}, {g_worst[1]:.3f})")
+        if not (f_worst <= 1.0 and max(g_worst) <= 1.0):
+            raise AssertionError(f"ViT head kernels at L={L} {dtype_name} disagree")
+        if dtype_name != "bfloat16":
+            continue
+        f_ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, hd ** -0.5))
+        f_plain = time_ms(torch, lambda: flash_mod.attention_reference(q, k, v, hd ** -0.5))
+        q4, k4, v4 = (t.view(B, Hh, L, hd) for t in (q, k, v))
+        f_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                       scale=hd ** -0.5))
+        f_b, f_by = bound_ms(2 * 4 * BH * L * hd, 4 * BH * L * L * hd, dtype_name)
+        g_ms = time_ms(torch, lambda: gated_mod.gated_attention(*args))
+        g_plain = time_ms(torch, lambda: gated_mod.gated_attention_reference(*args))
+        nbytes = (B * Dh + 2 * B * L * Dh + B * L + B * L * Dh) * 2 + (2 * Dh * Dh + 2 * Dh) * 4
+        flops = 4 * B * Dh * Dh + 2 * B * L * Dh * Hh + B * L * Dh + 4 * B * L * Hh
+        g_b, g_by = bound_ms(nbytes, flops, "float32")
+        log(f"ViT head L={L} bf16: flash kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, sdpa "
+            f"{f_lib:.4f} ms, bound {f_b:.4f} ms ({f_by}); gated kernel {g_ms:.4f} ms, plain "
+            f"{g_plain:.4f} ms, bound {g_b:.4f} ms ({g_by})")
+    log(f"ViT kernels measured on {gpu_line()}")
+    return results
+
+
+def check_vit_end_to_end(torch, cfg_mod, model_mod, steps, seed: int):
+    """Phase 14: the f32 ViT flagship, kernels on vs plain paths."""
+    import numpy as np
+
+    outs = []
+    rng = np.random.default_rng(seed + 140)
+    T, S = 32, 224
+    batch = {
+        "src_sketch": torch.from_numpy(rng.integers(0, 256, (2, 1, S, S, 3), dtype=np.uint8)).cuda(),
+        "src_video": torch.from_numpy(rng.integers(0, 256, (2, T, S, S, 3), dtype=np.uint8)).cuda(),
+        "src_sketch_mask": torch.ones(2, 1, device="cuda"),
+        "src_video_mask": torch.tensor([[1.0] * T, [1.0] * (T - 4) + [0.0] * 4], device="cuda"),
+    }
+    for kernels in (True, False):
+        cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(
+            backbone="vit", compute_dtype="float32", use_flash_attention=kernels,
+            use_pallas_attention=kernels))
+        model = model_mod.SketchLocalizationModel(cfg).eval()
+        model_mod.init_weights(model, torch.Generator().manual_seed(seed))
+        outs.append(steps.make_predict_fn(model.cuda())(batch))
+        del model
+    err = max((a - b).abs().max().item() for a, b in zip(*outs))
+    log(f"ViT end to end f32, kernels vs plain paths: max_abs_err={err:.3e} "
+        f"(atol {E2E_ATOL:.0e})")
+    if not err <= E2E_ATOL:
+        raise AssertionError(f"ViT end-to-end f32 disagrees: {err}")
+
+
 def serve(torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods,
-          B: int, n_requests: int, seed: int, quantize: bool = False):
-    """Phase 5 (bf16) or, with ``quantize``, phase 12 (int8, calibrated on
-    one batch made from the seed). Returns ({name: launches}, predict, a
-    full batch, the model's state dict)."""
+          B: int, n_requests: int, seed: int, quantize: bool = False,
+          backbone: str = "resnet"):
+    """Phase 5 (bf16), phase 12 (with ``quantize``: int8, calibrated on one
+    batch made from the seed) or phase 15 (bf16 with the ViT backbone).
+    Returns ({name: launches}, predict, a full batch, the model's state
+    dict)."""
     import numpy as np
 
     from svol_tpu_torch.ops import quant
 
     cfg = cfg_mod.SvolConfig(model=cfg_mod.ModelConfig(
         use_pallas_attention=True, quantize="int8" if quantize else None,
-        quantize_attention=quantize))
+        quantize_attention=quantize, backbone=backbone))
     T, S, Q = cfg.data.num_frames, cfg.data.image_size, cfg.model.num_queries
     L = T * model_mod.tokens_per_frame(cfg.model.backbone, S)
-    tag = "int8" if quantize else "bf16"
+    vit = backbone == "vit"
+    tag = "int8" if quantize else "ViT bf16" if vit else "bf16"
     model = model_mod.SketchLocalizationModel(cfg)
     model_mod.init_weights(model, torch.Generator().manual_seed(seed))
     if quantize:
@@ -434,7 +683,8 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods,
                 t.join(timeout=900)
             wall = time.perf_counter() - t0
             launches = read_counts(*kernel_mods)
-            by_length = dict(kernel_mods[-1].attention_int8.launches_by_length)
+            by_length = dict(kernel_mods[3].attention_int8.launches_by_length)
+            flash_by_length = dict(kernel_mods[0].flash_attention.launches_by_length)
             if any(t.is_alive() for t in threads) or errors:
                 raise RuntimeError(f"clients failed: {errors}")
             snap = stats.snapshot()
@@ -450,10 +700,13 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods,
         log(f"served {tag} {n_requests} requests in {batches} batches "
             f"(occupancy {snap['batch_occupancy']}), launches {launches}"
             + (f", int8 attention by length {by_length}" if quantize else ""))
-        per = PER_BATCH_INT8 if quantize else PER_BATCH
+        per = PER_BATCH_INT8 if quantize else PER_BATCH_VIT if vit else PER_BATCH
         want = {name: per.get(name, 0) * batches for name in launches}
         if launches != want or batches == 0:
             raise AssertionError(f"{tag} launch counts {launches} != {want}")
+        if vit and flash_by_length != {L: 2 * batches, Q: 2 * batches}:
+            raise AssertionError(f"ViT flash launches by length {flash_by_length}: "
+                                 f"not 2 per batch at each of L = {L} and {Q}")
         if quantize and by_length != {L: 2 * batches, Q: 2 * batches}:
             raise AssertionError(f"int8 attention launches by length {by_length}: "
                                  f"not 2 per batch at each of L = {L} and {Q}")
@@ -500,16 +753,19 @@ def serve(torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods,
         full["src_sketch_mask"] = np.ones((B, 1), np.float32)
         predict(full)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         reps = 5
         for _ in range(reps):
             predict(full)
         torch.cuda.synchronize()
         batch_s = (time.perf_counter() - t1) / reps
+        peak = torch.cuda.max_memory_allocated()
         log(f"serve {tag}: p50 {np.percentile(lat, 50):.3f} ms, p90 "
             f"{np.percentile(lat, 90):.3f} ms, {n_requests * T / wall:.1f} frames/s over "
             f"{wall:.3f} s with {CLIENTS} clients, batch occupancy {snap['batch_occupancy']}; "
-            f"direct batch-{B} predict {batch_s * 1e3:.3f} ms = {B * T / batch_s:.1f} frames/s")
+            f"direct batch-{B} predict {batch_s * 1e3:.3f} ms = {B * T / batch_s:.1f} frames/s, "
+            f"peak memory {peak / 2**30:.3f} GiB (the server's model and this one)")
         log(f"serve {tag} measured on {gpu_line()}")
         return launches, predict, full, state
     finally:
@@ -706,24 +962,29 @@ def check_train_end_to_end(torch, cfg_mod, model_mod, state_mod, criterion_mod,
         raise AssertionError("f32 train step: kernels and plain paths disagree")
 
 
-def zero_counts(flash_mod, gated_mod, lsap_mod, int8_mod) -> None:
+def zero_counts(flash_mod, gated_mod, lsap_mod, int8_mod, ln_mod) -> None:
     flash_mod.flash_attention.launches = 0
     flash_mod.flash_attention.launches_short = 0
+    flash_mod.flash_attention.launches_by_length = {}
     flash_mod.flash_attention_backward.launches = 0
+    flash_mod.flash_attention_bld.launches = 0
     gated_mod.gated_attention.launches = 0
     lsap_mod.lsap.launches = 0
     int8_mod.attention_int8.launches = 0
     int8_mod.attention_int8.launches_by_length = {}
+    ln_mod.fused_layer_norm.launches = 0
 
 
-def read_counts(flash_mod, gated_mod, lsap_mod, int8_mod):
+def read_counts(flash_mod, gated_mod, lsap_mod, int8_mod, ln_mod):
     fwd = flash_mod.flash_attention
     return {"flash_long": fwd.launches - fwd.launches_short,
             "flash_short": fwd.launches_short,
             "flash_backward": flash_mod.flash_attention_backward.launches,
             "gated": gated_mod.gated_attention.launches,
             "lsap": lsap_mod.lsap.launches,
-            "flash_int8": int8_mod.attention_int8.launches}
+            "flash_int8": int8_mod.attention_int8.launches,
+            "flash_bld": flash_mod.flash_attention_bld.launches,
+            "layer_norm": ln_mod.fused_layer_norm.launches}
 
 
 def train_run(torch, cfg_mod, model_mod, state_mod, criterion_mod, steps_mod,
@@ -811,6 +1072,7 @@ def main(argv=None) -> int:
     from svol_tpu_torch.ops.kernels import flash_attention as flash_mod
     from svol_tpu_torch.ops.kernels import flash_attention_int8 as int8_mod
     from svol_tpu_torch.ops.kernels import gated_attention as gated_mod
+    from svol_tpu_torch.ops.kernels import layer_norm as ln_mod
     from svol_tpu_torch.ops.kernels import lsap as lsap_mod
     from svol_tpu_torch.train import state as state_mod
     from svol_tpu_torch.train import steps
@@ -824,7 +1086,7 @@ def main(argv=None) -> int:
     secs = build.build()
     log(f"build: {secs:.1f} s")
     for name, out in sorted(build.build_log.items()):
-        log(f"--- nvcc {name}.cu ---\n{out.strip()}")
+        log(f"--- nvcc {name}.cu ---\n{ptxas_summary(out)}")
 
     B = 8
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -835,7 +1097,7 @@ def main(argv=None) -> int:
         check_end_to_end(torch, cfg_mod, model_mod, steps, args.seed)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
-    kernel_mods = (flash_mod, gated_mod, lsap_mod, int8_mod)
+    kernel_mods = (flash_mod, gated_mod, lsap_mod, int8_mod, ln_mod)
     launches, predict, full, _ = serve(torch, cfg_mod, model_mod, serving, serve_cli,
                                        synthetic, kernel_mods, B, args.requests, args.seed)
     if args.profile:
@@ -872,9 +1134,28 @@ def main(argv=None) -> int:
     if args.profile:
         profile(torch, predict, full)
     del predict, full, state
+    torch.cuda.empty_cache()
 
-    # launches: the served bf16 run's, the train run's and the served int8
-    # run's, each counted from 0 just before its path ran
+    # the ViT backbone: its kernels at the ViT shapes, f32 end to end, then
+    # the served bf16 path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        measured.update(check_vit_kernels(torch, F, flash_mod, gated_mod, ln_mod, args.seed))
+        torch.cuda.empty_cache()
+        check_vit_end_to_end(torch, cfg_mod, model_mod, steps, args.seed)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    vit_launches, predict, full, _ = serve(
+        torch, cfg_mod, model_mod, serving, serve_cli, synthetic, kernel_mods, B,
+        args.requests, args.seed, backbone="vit")
+    if args.profile:
+        profile(torch, predict, full)
+    del predict, full
+
+    # launches: the served bf16 run's, the train run's, the served int8
+    # run's and the served ViT run's, each counted from 0 just before its
+    # path ran
     entries = [
         ("flash_attention (video self-attention, L=1568)", "flash_long",
          "svol_tpu_torch/csrc/flash_attention.cu", "svol_tpu/ops/pallas/flash_attention.py:167"),
@@ -890,12 +1171,17 @@ def main(argv=None) -> int:
         ("attention_int8 (video self-attention L=1568; also query L=320)", "flash_int8",
          "svol_tpu_torch/csrc/flash_attention_int8.cu",
          "svol_tpu/ops/pallas/flash_attention.py:347"),
+        ("flash_attention_bld (ViT self-attention, (B, L, D) = (256, 197, 768), H=12)",
+         "flash_bld", "svol_tpu_torch/csrc/flash_attention.cu",
+         "svol_tpu/ops/pallas/flash_attention.py:479"),
+        ("layer_norm (ViT LayerNorm, 50,432 x 768 rows)", "layer_norm",
+         "svol_tpu_torch/csrc/layer_norm.cu", "svol_tpu/ops/pallas/layer_norm.py:78"),
     ]
+    runs = (launches, train_launches, int8_launches, vit_launches)
     log(f"launches: served bf16 run {launches}, train run {train_launches}, "
-        f"served int8 run {int8_launches}")
+        f"served int8 run {int8_launches}, served ViT run {vit_launches}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[key] + train_launches[key] + int8_launches[key],
-                    **measured[key])
+                    launches=sum(run[key] for run in runs), **measured[key])
                for name, key, src, rep in entries]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -3,9 +3,10 @@
 Same names and defaults as the JAX package's ``DataConfig``/``ModelConfig``/
 ``LossConfig``/``TrainConfig`` (the flagship configuration), plus its
 checks. Only the svanet head over the ResNet backbone with the conv7 stem
-and sine positions, the per-frame matcher with the on-device solver,
-AdamW with StepLR, and int8 serving of the ResNet trunk and the flash
-self-attention are ported; other values raise.
+or over the ViT-B/16 backbone (serving only), sine positions, the
+per-frame matcher with the on-device solver, AdamW with StepLR, and int8
+serving of the ResNet trunk and the flash self-attention are ported; other
+values raise.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ class DataConfig:
 @dataclass
 class ModelConfig:
     sketch_head: str = "svanet"
+    # 'resnet' | 'vit' (ViT-B/16; serving only in the port so far)
     backbone: str = "resnet"
     hidden_dim: int = 256
     nheads: int = 8
@@ -117,9 +119,10 @@ class SvolConfig:
                 f"({d.num_frames}) * num_queries_per_frame ({m.num_queries_per_frame}); "
                 "the reference asserts the same (matcher.py:56)."
             )
+        if m.backbone not in ("resnet", "vit"):
+            raise ValueError(f"unknown backbone {m.backbone!r}")
         for name, got, ported in (
             ("sketch_head", m.sketch_head, "svanet"),
-            ("backbone", m.backbone, "resnet"),
             ("resnet_stem", m.resnet_stem, "conv7"),
             ("video_position_embedding", m.video_position_embedding, "sine"),
             ("matcher", l.matcher, "per_frame_matcher"),
@@ -142,6 +145,8 @@ class SvolConfig:
             m.quantize = None
         if m.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {m.quantize!r}")
+        if m.quantize and m.backbone != "resnet":
+            raise ValueError("--quantize supports ResNet backbones only")
         if m.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {m.compute_dtype!r}")
         if not 0.0 <= m.input_dropout < 1.0:

@@ -1,9 +1,12 @@
-"""Top-level model: ResNet backbone + SVANet head (port of the svanet branch
-of svol_tpu/models/model.py).
+"""Top-level model: ResNet or ViT backbone + SVANet head (port of the svanet
+branch of svol_tpu/models/model.py).
 
-uint8 pixels are cast to the compute dtype on the device and the /255
-normalization folds into the stem conv's kernel (conv is linear); float
-pixels in [0, 1] pass unscaled. ``model.train()`` / ``.eval()`` play the
+uint8 pixels are cast to the compute dtype on the device. For the ResNet
+the /255 normalization folds into the stem conv's kernel (conv is
+linear); for the ViT they are divided by 255 in the compute dtype, as the
+JAX model does (in bfloat16 the rounding points matter). Float pixels in
+[0, 1] pass unscaled (the ViT normalizes them in their own dtype, then
+casts). ``model.train()`` / ``.eval()`` play the
 JAX ``train=`` flag: BatchNorm batch statistics and input dropout in train
 mode, running statistics and no dropout in eval mode. With
 ``quantize='int8'`` the eval-mode forward serves int8 (ops/quant.py, and
@@ -19,6 +22,7 @@ from torch import nn
 from svol_tpu_torch.config import SvolConfig
 from svol_tpu_torch.models.backbone import (
     ResNetBackbone,
+    ViTBackbone,
     backbone_feature_dims,
     tokens_per_frame,
 )
@@ -32,7 +36,10 @@ class SketchLocalizationModel(nn.Module):
         super().__init__()
         cfg = config.model
         self.dtype = DTYPES[cfg.compute_dtype]
-        self.backbone = ResNetBackbone(cfg.quantize)
+        self.fold = cfg.backbone == "resnet"
+        self.backbone = (ResNetBackbone(cfg.quantize) if self.fold else
+                         ViTBackbone(config.data.image_size, cfg.use_flash_attention,
+                                     self.dtype))
         vid_dim, skch_dim = backbone_feature_dims(cfg.backbone)
         self.tokens_per_frame = tokens_per_frame(cfg.backbone, config.data.image_size)
         self.head = SVANet(
@@ -57,11 +64,17 @@ class SketchLocalizationModel(nn.Module):
         # mask is part of the input schema but, as in the JAX model's sine
         # configuration, nothing consumes it. generator: the source of the
         # dropout masks in train mode, on the model's device.
-        sketch_scale = 1.0 / 255.0 if not src_sketch.is_floating_point() else 1.0
-        video_scale = 1.0 / 255.0 if not src_video.is_floating_point() else 1.0
-        feat_sketch, feat_video = self.backbone(
-            src_sketch.to(self.dtype), src_video.to(self.dtype),
-            sketch_scale=sketch_scale, video_scale=video_scale)
+        if self.fold:
+            sketch_scale = 1.0 / 255.0 if not src_sketch.is_floating_point() else 1.0
+            video_scale = 1.0 / 255.0 if not src_video.is_floating_point() else 1.0
+            feat_sketch, feat_video = self.backbone(
+                src_sketch.to(self.dtype), src_video.to(self.dtype),
+                sketch_scale=sketch_scale, video_scale=video_scale)
+        else:
+            pixels = lambda x: (x if x.is_floating_point()
+                                else x.to(self.dtype) / 255.0)
+            feat_sketch, feat_video = self.backbone(pixels(src_sketch),
+                                                    pixels(src_video))
         rep = self.tokens_per_frame
         if feat_video.shape[1] != src_video.shape[1] * rep:
             raise ValueError(
@@ -78,12 +91,16 @@ class SketchLocalizationModel(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator``: lecun-normal convs, xavier-uniform
-    matrices, N(0, 1) query embeddings, unit norms and zero biases, running
-    statistics (0, 1) — the flax initializers' distributions, not their
-    draws."""
+    matrices, N(0, 1) query embeddings, N(0, 0.02) ViT positions, a zero
+    CLS token, unit norms and zero biases, running statistics (0, 1) — the
+    flax initializers' distributions, not their draws."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if p.dim() == 4:
+        if leaf == "pos_embed":
+            p.normal_(0.0, 0.02, generator=generator)
+        elif leaf == "cls_token":
+            p.zero_()
+        elif p.dim() == 4:
             fan_in = p.shape[1] * p.shape[2] * p.shape[3]
             p.normal_(0.0, fan_in ** -0.5, generator=generator)
         elif leaf == "query_embed":

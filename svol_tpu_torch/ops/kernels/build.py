@@ -20,7 +20,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_int8",
-                  "gated_attention", "lsap")
+                  "gated_attention", "layer_norm", "lsap")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

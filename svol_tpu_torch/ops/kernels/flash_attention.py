@@ -1,16 +1,22 @@
 """Unmasked attention, softmax(q k^T scale) v, over (BH, L, d) tensors, with
-its gradient.
+its gradient, and over (B, L, H*d) tensors, forward only.
 
 Port of svol_tpu/ops/pallas/flash_attention.py: the forward of `_kernel`
 (video self-attention, L = T*49) and `_kernel_packed` (query
-self-attention, L = Q), and the backward `_bwd_kernel`. The forward is one
-hand-written CUDA kernel, ``csrc/flash_attention.cu``, launched in two
-shapes: one thread per query row for long sequences, four threads per row
-for short ones, where one thread per row leaves the card under-filled. The
-choice follows the same size rule the JAX package uses to pack batch-heads
-(``_PACK_LOGITS_BYTES``). Under autograd the forward also saves each row's
-logsumexp, and the backward runs ``csrc/flash_attention_bwd.cu`` (a dQ and
-a dK/dV kernel, no (L, L) tile anywhere).
+self-attention, L = Q), the backward `_bwd_kernel`, and the (B, L, D)
+forward `_kernel_bld` (the ViT encoder's self-attention). The forwards are
+one hand-written CUDA source, ``csrc/flash_attention.cu``. Its CUDA-core
+kernel launches in two shapes: one thread per query row for long
+sequences, four threads per row for short ones, where one thread per row
+leaves the card under-filled. The choice follows the same size rule the
+JAX package uses to pack batch-heads (``_PACK_LOGITS_BYTES``). The
+(B, L, D) entry, at ViT-B/16's head dim 64, takes that kernel with four
+threads per row in float32 and a tensor-core kernel of the same source
+(16 query rows a warp, ``mma.sync``) in bfloat16; it reads each head's
+column slice of the projections in place and writes (B, L, D): no
+transposed copy. Under autograd the (BH, L, d) forward also saves each
+row's logsumexp, and the backward runs ``csrc/flash_attention_bwd.cu`` (a
+dQ and a dK/dV kernel, no (L, L) tile anywhere).
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from svol_tpu_torch.ops.kernels import build
 _SPLIT_LOGITS_BYTES = 1024 * 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32,)
+# the (B, L, D) entry's head dim: ViT-B/16's 768 / 12
+_BLD_HEAD_DIM = 64
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,6 +69,19 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
 def _in_dtype(x: float, dtype: torch.dtype) -> float:
     # JAX multiplies by a Python scalar in the array's dtype
     return float(torch.tensor(x, dtype=dtype))
+
+
+def attention_bld_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float,
+                            num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of ``_kernel_bld``: ``attention_reference`` on
+    each head's column slice of the (B, L, D) operands, the outputs side by
+    side in (B, Lq, D)."""
+    d = q.shape[-1] // num_heads
+    return torch.cat([attention_reference(q[..., h * d:(h + 1) * d],
+                                          k[..., h * d:(h + 1) * d],
+                                          v[..., h * d:(h + 1) * d], scale)
+                      for h in range(num_heads)], dim=-1)
 
 
 def threads_per_row(lq: int, lk: int) -> int:
@@ -105,6 +126,8 @@ def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     flash_attention.launches += 1
     if tpr > 1:
         flash_attention.launches_short += 1
+    by_length = flash_attention.launches_by_length
+    by_length[lk] = by_length.get(lk, 0) + 1
     return o, lse
 
 
@@ -119,9 +142,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches of the forward kernel; launches_short counts those with 4
-# threads per row
+# threads per row, launches_by_length each key length's
 flash_attention.launches = 0
 flash_attention.launches_short = 0
+flash_attention.launches_by_length = {}
 
 
 def flash_attention_backward(q, k, v, lse, g, scale: float):
@@ -162,6 +186,56 @@ def flash_attention_backward(q, k, v, lse, g, scale: float):
 flash_attention_backward.launches = 0
 
 
+def flash_attention_bld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, num_heads: int) -> torch.Tensor:
+    """Unmasked multi-head attention in (B, L, D) layout: q (B, Lq, D), k and
+    v (B, Lk, D), head h the columns [h d, (h + 1) d); returns (B, Lq, D) in
+    q's dtype. CPU tensors take ``attention_bld_reference``; CUDA tensors
+    launch the kernel or raise. Forward only on the card."""
+    if q.device.type == "cpu":
+        return attention_bld_reference(q, k, v, scale, num_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bld: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention_bld: the kernel is forward only; its backward "
+            "comes with the ViT training slice of the port")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] \
+            or q.shape[2] % num_heads:
+        raise ValueError(f"flash_attention_bld: bad shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} for "
+                         f"{num_heads} heads")
+    B, lq, D = q.shape
+    lk, d = k.shape[1], D // num_heads
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bld: q/k/v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d != _BLD_HEAD_DIM or lq == 0 or lk == 0:
+        raise ValueError(f"flash_attention_bld: head dim {d} is not "
+                         f"{_BLD_HEAD_DIM} or empty sequence (lq={lq}, lk={lk})")
+    if not all(t.is_contiguous() and t.device == q.device and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention_bld: q/k/v must be contiguous and "
+                         "16-byte aligned on one device")
+    lib = _lib()
+    o = torch.empty_like(q)
+    rc = lib.svol_flash_attention_bld(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, num_heads,
+        lq, lk, d, _in_dtype(scale, q.dtype), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention_bld launch failed: "
+                           + lib.svol_error_string(rc).decode())
+    flash_attention_bld.launches += 1
+    return o
+
+
+flash_attention_bld.launches = 0
+# the JAX package's public name for the same entry
+flash_self_attention_bld = flash_attention_bld
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the kernel (with the row logsumexp when a gradient will be
     asked for) or, on the CPU, the plain version. Backward:
@@ -193,6 +267,9 @@ def _lib() -> ctypes.CDLL:
         lib.svol_flash_attention.argtypes = [p, p, p, p, p, i, i, i, i,
                                              ctypes.c_float, i, i, p]
         lib.svol_flash_attention.restype = i
+        lib.svol_flash_attention_bld.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                 ctypes.c_float, i, p]
+        lib.svol_flash_attention_bld.restype = i
         lib.svol_error_string.argtypes = [i]
         lib.svol_error_string.restype = ctypes.c_char_p
         lib._svol_typed = True

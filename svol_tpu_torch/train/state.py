@@ -71,6 +71,14 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
+def refuse_vit_training(config: SvolConfig) -> None:
+    """The port's ViT kernels are forward only: its training slice (the
+    (B, L, D) flash backward and the LayerNorm backward) is still to come."""
+    if config.model.backbone == "vit":
+        raise NotImplementedError(
+            "training the ViT backbone is not ported yet (serving only)")
+
+
 def create_train_state(config: SvolConfig, model: nn.Module,
                        generator: Optional[torch.Generator] = None,
                        device=None) -> TrainState:
@@ -78,7 +86,9 @@ def create_train_state(config: SvolConfig, model: nn.Module,
     without CUDA that raises). ``generator`` draws fresh weights
     (``init_weights``) before the move; ``None`` keeps the model's weights.
     Dropout masks come from a generator on the device seeded with
-    ``config.train.seed``."""
+    ``config.train.seed``. The ViT backbone is not ported for training yet,
+    and raises."""
+    refuse_vit_training(config)
     dev = resolve_device(device)
     if generator is not None:
         init_weights(model, generator)

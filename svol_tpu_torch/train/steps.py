@@ -19,6 +19,7 @@ from svol_tpu_torch.train.state import (
     TrainState,
     clip_by_global_norm,
     global_norm,
+    refuse_vit_training,
 )
 
 
@@ -27,7 +28,9 @@ def make_train_step(config: SvolConfig, criterion: SetCriterion) -> Callable:
     place: ``_train_step_body`` of the JAX package. ``batch`` holds the
     model inputs plus ``boxes`` (B, T, K, 4) and ``box_valid`` (B, T, K) on
     the model's device; ``metrics`` is the weighted log view of every loss
-    plus ``grad_norm``, the global norm of the unclipped gradients."""
+    plus ``grad_norm``, the global norm of the unclipped gradients. The ViT
+    backbone is not ported for training yet, and raises."""
+    refuse_vit_training(config)
     clip = config.train.grad_clip_norm
     ema_decay = config.train.ema_decay
 

@@ -11,7 +11,8 @@ the leaf name and layout change:
     BatchNorm mean / var          -> running_mean / running_var
     quant amax / amax_q/k/v       -> the same name, a float32 scalar buffer
                                      (calibrated int8 scales)
-    everything else (the gated op's raw q/k projections, query_embed)
+    everything else (the gated op's raw q/k projections, query_embed,
+    the ViT's cls_token and pos_embed)
                                   -> the same name and layout
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes); the result

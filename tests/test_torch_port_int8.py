@@ -62,6 +62,7 @@ from test_torch_port_model import (  # noqa: F401  (inputs, port: fixtures)
     torch_batch,
 )
 from torch_port_reference_cache import shared
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 U = 2.0 ** -24  # float32 unit roundoff

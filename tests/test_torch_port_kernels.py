@@ -27,6 +27,7 @@ from svol_tpu_torch.ops.kernels.gated_attention import (
     gated_attention,
     gated_attention_reference,
 )
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,7 +116,9 @@ def test_port_imports_no_jax_flax_or_svol_tpu():
     assert len(sources) > 10
     names = {os.path.relpath(p, REPO) for p in sources}
     assert {"svol_tpu_torch/ops/quant.py",
-            "svol_tpu_torch/ops/kernels/flash_attention_int8.py"} <= names
+            "svol_tpu_torch/ops/kernels/flash_attention_int8.py",
+            "svol_tpu_torch/ops/kernels/layer_norm.py",
+            "svol_tpu_torch/models/vit.py"} <= names
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
@@ -137,7 +140,8 @@ def test_importing_the_port_loads_no_jax():
             "svol_tpu_torch.train.steps, svol_tpu_torch.train.state, "
             "svol_tpu_torch.losses.criterion, svol_tpu_torch.ops.hungarian, "
             "svol_tpu_torch.data.synthetic, svol_tpu_torch.ops.quant, "
-            "svol_tpu_torch.ops.kernels.flash_attention_int8; "
+            "svol_tpu_torch.ops.kernels.flash_attention_int8, "
+            "svol_tpu_torch.models.vit, svol_tpu_torch.ops.kernels.layer_norm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'svol_tpu')]; print(bad); assert not bad")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -32,6 +32,7 @@ from svol_tpu_torch.models.positional import PositionEmbeddingSine
 from svol_tpu_torch.train.steps import make_predict_fn
 from svol_tpu_torch.utils.jax_weights import convert_jax_variables
 from torch_port_reference_cache import shared
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 T, K, IMG, B, HID, HEADS = 2, 2, 64, 2, 32, 4

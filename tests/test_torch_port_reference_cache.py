@@ -8,7 +8,7 @@ import types
 
 import numpy as np
 
-from torch_port_reference_cache import load_or_compute, shared_dir
+from torch_port_reference_cache import load_or_compute, prefetch, shared_dir
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
@@ -80,3 +80,27 @@ def test_the_shared_directory_is_the_runs_under_xdist(tmp_path, monkeypatch):
     assert shared_dir(factory) == str(tmp_path)
     monkeypatch.delenv("PYTEST_XDIST_WORKER")
     assert shared_dir(factory) == str(base)
+
+
+# a module whose references ``prefetch`` computes in its child
+_PREFETCHED = """
+import os, time
+import numpy as np
+from torch_port_reference_cache import load_or_compute
+
+def references(directory):
+    load_or_compute(directory, "ahead", lambda: {"x": np.arange(4.0), "pid": os.getpid()})
+"""
+
+
+def test_prefetch_starts_one_child_per_run_and_its_copy_loads(tmp_path, monkeypatch):
+    (tmp_path / "prefetched_mod.py").write_text(_PREFETCHED)
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    child = prefetch(str(tmp_path), "prefetched_mod", "references")
+    assert child is not None
+    # another caller of the same run finds the claim and starts nothing
+    assert prefetch(str(tmp_path), "prefetched_mod", "references") is None
+    assert child.wait(timeout=120) == 0, (tmp_path / "prefetched_mod.prefetch.log").read_text()
+    value, _ = load_or_compute(str(tmp_path), "ahead", lambda: {"pid": os.getpid()})
+    assert value["pid"] == child.pid  # computed by the child, loaded here
+    np.testing.assert_array_equal(value["x"], np.arange(4.0))

@@ -19,6 +19,7 @@ from svol_tpu_torch import serving
 from svol_tpu_torch.cli.serve import parse_request, start_server
 from svol_tpu_torch.config import DataConfig, ModelConfig, SvolConfig
 from svol_tpu_torch.models.model import SketchLocalizationModel, init_weights
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 T, K, IMG, BS = 2, 3, 64, 4

@@ -49,6 +49,7 @@ from svol_tpu_torch.ops.kernels.gated_attention import gated_attention
 from svol_tpu_torch.ops.kernels.lsap import lsap
 from svol_tpu_torch.train.state import clip_by_global_norm, create_train_state, global_norm
 from svol_tpu_torch.train.steps import make_train_step
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 T, K, IMG, B, HID, HEADS = 2, 2, 64, 2, 32, 4

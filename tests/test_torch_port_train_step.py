@@ -40,7 +40,8 @@ from svol_tpu_torch.train.steps import make_train_step
 from svol_tpu_torch.utils.jax_weights import convert_jax_variables, port_state_to_jax_numpy
 from test_torch_port_model import abstract_init, fill_variables
 from test_torch_port_train import B, jax_cfg, port_cfg
-from torch_port_reference_cache import shared
+from torch_port_reference_cache import load_or_compute, shared
+from torch_port_reference_cache import prefetch_costly_references  # noqa: F401
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_STEPS = 3
@@ -147,8 +148,18 @@ def jax_reference():
     return side
 
 
-# Each reference is built by one xdist worker per run and loaded by the
-# others (tests/torch_port_reference_cache.py).
+def prefetch_references(directory):
+    """What the two fixtures below compute, into ``directory``: started
+    ahead of them in a child process (tests/torch_port_reference_cache.py)."""
+    inputs = load_or_compute(directory, "train_step_jax_inputs", jax_inputs)[0]
+    load_or_compute(directory, "train_step_jax_trajectory",
+                    lambda: jax_trajectory(inputs["variables"], inputs["batches"],
+                                           "float64"))
+
+
+# Each reference is built once per run, by the child process above or by
+# one xdist worker, and loaded by the others
+# (tests/torch_port_reference_cache.py).
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     return shared(tmp_path_factory, "train_step_jax_inputs", jax_inputs)
